@@ -1,0 +1,92 @@
+"""The port's boundaries: no JAX, no reference package, no silent CPU runs.
+
+* No module of orcvio_tpu_torch, nor chip_smoke.py, imports jax, flax or
+  orcvio_tpu (by name or as a dotted submodule).
+* Importing the whole port leaves jax out of sys.modules.
+* Entry points without device= run on CUDA, and raise where there is none.
+* Kernel wrappers given CPU tensors take the plain versions: their launch
+  counters stay at 0.
+"""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import orcvio_tpu_torch
+from orcvio_tpu_torch.eval.staged import make_tracker_scan, stage_sequence
+from orcvio_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
+from orcvio_tpu_torch.ops.dma_gather import dma_gather_tiles
+from orcvio_tpu_torch.ops.lk_pallas import AUX_W, lk_level_fused
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "flax", "orcvio_tpu")
+PORT_FILES = sorted((ROOT / "orcvio_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    for mod in _imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_port_import_leaves_jax_unloaded():
+    names = [m.name for m in pkgutil.walk_packages(
+        orcvio_tpu_torch.__path__, "orcvio_tpu_torch.")]
+    assert "orcvio_tpu_torch.frontend.tracker" in names
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}: importlib.import_module(n)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_entry_points_need_a_device():
+    tc = TrackerConfig(height=64, width=96, capacity=8, pyramid_levels=2)
+    if torch.cuda.is_available():
+        assert callable(make_tracker_scan(tc, np.eye(3)))
+        assert TrackerState.create(tc).xy.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_tracker_scan(tc, np.eye(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrackerState.create(tc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stage_sequence(np.zeros((1, 64, 96), np.uint8), [0.0],
+                       np.zeros((1, 2)), np.zeros((1, 2, 3)),
+                       np.zeros((1, 2, 3)), np.ones((1, 2), bool))
+
+
+def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
+    monkeypatch.setattr(dma_gather_tiles, "launches", 0)
+    monkeypatch.setattr(lk_level_fused, "launches", 0)
+    imgs = torch.rand(1, 64, 256)
+    idx = torch.zeros(3, dtype=torch.int32)
+    win = dma_gather_tiles(imgs, idx, idx, idx, 6, 2)
+    aux = torch.zeros(3, AUX_W)
+    aux[:, 0:2] = aux[:, 10:12] = 20.0
+    aux[:, 4:6], aux[:, 6:8] = 10.0, 30.0
+    out = lk_level_fused(win, win, aux, 3, 15)
+    assert win.shape == (3, 48, 256) and out.shape == (3, 8)
+    assert dma_gather_tiles.launches == 0
+    assert lk_level_fused.launches == 0
