@@ -11,12 +11,18 @@ Phases:
  2. the port's main path, the front end at the bench configuration
     (752x480, 3 levels, 200 features, detection every 2nd frame, float32)
     over a seeded synthetic stream whose true flow is known: launch counts
-    of both kernels, tracked features, flow error; then a small stream on
-    the card against the same stream through the plain versions on the CPU;
+    of both kernels, tracked features, flow error; a 20-frame scan under
+    torch's sync debug mode, which must find no host synchronisation; then
+    a small stream on the card against the same stream through the plain
+    versions on the CPU;
  3. each kernel against its plain version on the card, on windows and
     positions cut from the main path's last frames;
- 4. times with CUDA events: tracker ms/frame, each kernel's time beside its
-    bound, its plain version's and (K1) an advanced-indexing gather's.
+ 4. times with CUDA events: tracker ms/frame (21 scans), each kernel's
+    time beside its bound, its plain version's and (K1) an
+    advanced-indexing gather's. A bound counts the bytes and operations
+    the kernel's function needs on this run's data: for K1 the image tiles
+    its windows cover and the windows, for K2 the taps its template and
+    its visited positions read, not the whole windows it is given.
 
 Prints JSON lines; the last line is {"ok": true, "device": {...}}. Exits
 non-zero, without that line, on any failed check, where CUDA is not
@@ -132,6 +138,73 @@ def time_ms(fn, reps=30, warmup=3, preload=True):
         pairs.append((e0, e1))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def scan_syncs(scan, ts0, staged, n):
+    """Host synchronisations inside an n-frame scan, as the file:line of each
+    warning torch's sync debug mode raises there, and whether the mode
+    caught a deliberate sync (an .item()) made after the scan."""
+    import warnings
+
+    import torch
+
+    part = type(staged)(*(x[:n] for x in staged))
+
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                if "called a synchronizing" in str(w.message)]
+
+    found = syncs(lambda: scan(ts0, part))
+    control = syncs(lambda: torch.ones(1, device=DEVICE).sum().item())
+    torch.cuda.synchronize()
+    return found, bool(control)
+
+
+def k1_needed_bytes(imgs, r0, c0, nr, nl):
+    """Bytes K1's function must move: the distinct image tiles its windows
+    cover, read once, the windows written once, and the (N,) indices."""
+    import torch
+
+    N = r0.shape[0]
+    Hb, Wb = imgs.shape[1] // 8, imgs.shape[2] // 128
+    cover = torch.zeros((Hb, Wb), dtype=torch.bool, device=imgs.device)
+    rows = r0.long()[:, None] + torch.arange(nr, device=imgs.device)
+    cols = c0.long()[:, None] + torch.arange(nl, device=imgs.device)
+    cover[rows[:, :, None], cols[:, None, :]] = True
+    tile = 8 * 128 * 4
+    return int(cover.sum()) * tile + N * nr * nl * tile + 3 * N * 4
+
+
+def k2_needed_bytes(win0, win1, aux, iters, P, eps, plain):
+    """Bytes K2's function must move for this data: per feature the
+    (P+3)^2 block of win0 its template reads and the union of the (P+1)^2
+    blocks of win1 at every position it visits (the plain version run for
+    0..iters steps gives them), aux read once and the (N, 8) output written
+    once. Not the windows as stored: the function reads only these taps."""
+    import torch
+
+    N, R, L = win1.shape
+    r = (P - 1) // 2
+    seen = torch.zeros((N, R, L), dtype=torch.bool, device=win1.device)
+    n = torch.arange(N, device=win1.device)[:, None, None]
+    a = torch.arange(P + 1, device=win1.device)
+    for k in range(iters + 1):
+        pos = plain(win0, win1, aux, k, P, eps)[:, :2]
+        ly = torch.clamp(pos[:, 1] - r, 0.0, R - 1.001 - P)
+        lx = torch.clamp(pos[:, 0] - r, 0.0, L - 1.001 - P)
+        rows = torch.floor(ly).long()[:, None] + a
+        cols = torch.floor(lx).long()[:, None] + a
+        seen[n, rows[:, :, None], cols[:, None, :]] = True
+    win1_px = int(seen.sum())
+    return (4 * (N * (P + 3) ** 2 + win1_px + aux.numel() + N * 8),
+            win1_px / N)
 
 
 def profile_frames(scan, ts0, staged, n):
@@ -254,6 +327,14 @@ def main() -> int:
                         "flow_err_p90_px": float(np.quantile(flow_err, 0.9)),
                         "next_id": int(ts.next_id)}})
 
+    # the frame loop waits for the card nowhere (caches are warm after the
+    # first run, so any sync here would be one per frame)
+    syncs, control = scan_syncs(scan, ts0, staged, 20)
+    check(control and not syncs,
+          f"no host synchronisation in a 20-frame scan ({len(syncs)} found: "
+          f"{sorted(set(syncs))[:5]}; a deliberate .item() was "
+          f"{'caught' if control else 'missed'})")
+
     # small stream: card (kernels) against CPU (plain versions), same draws
     stc = tc._replace(height=120, width=160, pyramid_levels=2, capacity=32,
                       grid_rows=4, grid_cols=4)
@@ -336,7 +417,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---------------- 4. times ----------------
-    reps_scan = 3
+    reps_scan = 21
     ev = []
     for _ in range(reps_scan):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -346,9 +427,13 @@ def main() -> int:
         e1.record()
         ev.append((e0, e1))
     torch.cuda.synchronize()
-    per_frame = [a.elapsed_time(b) / T for a, b in ev]
+    per_frame = np.asarray([a.elapsed_time(b) / T for a, b in ev])
     emit({"tracker": {"ms_per_frame": float(np.median(per_frame)),
-                      "runs_ms_per_frame": per_frame, "frames": T,
+                      "min": float(per_frame.min()),
+                      "p10": float(np.quantile(per_frame, 0.1)),
+                      "p90": float(np.quantile(per_frame, 0.9)),
+                      "max": float(per_frame.max()), "scans": reps_scan,
+                      "frames": T,
                       "config": "752x480, 3 levels, 200 features, f32"}})
 
     # K1 at the main path's level-0 KLT shape, and the ORB shape
@@ -369,7 +454,7 @@ def main() -> int:
     check(bool(torch.equal(lib, dma_gather_tiles(imgs, r0, c0, b, 6, 2))),
           "K1 yardstick gather equals the kernel")
     k1_lib_ms = time_ms(lambda: imgs[bl, ri, ci])
-    k1_bytes = 2 * N * 48 * 256 * 4 + 3 * N * 4
+    k1_bytes = k1_needed_bytes(imgs, r0, c0, 6, 2)
     _, oimgs, or0, oc0 = k1_cases[-1]
     ob = torch.zeros_like(or0)
     k1_orb_ms = time_ms(lambda: dma_gather_tiles(oimgs, or0, oc0, ob, 6, 2))
@@ -389,7 +474,8 @@ def main() -> int:
     k2_plain_ms = time_ms(lambda: lk_level_fused_plain(
         lw0.win, lw1.win, aux, tc.klt_iters, P, klt.KLT_EPS), reps=20,
         preload=False)
-    k2_bytes = 2 * lw0.win.numel() * 4 + aux.numel() * 4 + N2 * 8 * 4
+    k2_bytes, win1_px = k2_needed_bytes(lw0.win, lw1.win, aux, tc.klt_iters,
+                                        P, klt.KLT_EPS, lk_level_fused_plain)
     # template: (P+2)^2 bilinear taps (9 ops) + P^2 differences and Hessian
     # terms (10); per step: P^2 taps of bilinear, error and two products
     # (14) + the 2x2 solve (20); residual: P^2 x 12
@@ -412,7 +498,7 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib_ms,
          "shape": f"({N},48,256) from {tuple(imgs.shape)}",
-         "call_ms": k1_call_ms, "orb_ms": k1_orb_ms,
+         "bytes": k1_bytes, "call_ms": k1_call_ms, "orb_ms": k1_orb_ms,
          "orb_shape": f"({or0.shape[0]},48,256)",
          "check": "bit-exact at 3 levels x 2 images + ORB"},
         {"name": "lk_level", "route": "cuda",
@@ -423,7 +509,9 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None,
          "shape": f"win0/win1 ({N2},48,256), aux ({N2},16)",
-         "call_ms": k2_call_ms, "steps_mean": steps / N2,
+         "bytes": k2_bytes, "ops": k2_ops,
+         "win1_px_per_feature": win1_px, "call_ms": k2_call_ms,
+         "steps_mean": steps / N2, "steps_max": float(k2_out[:, 5].max()),
          "max_abs_err_eps0": k2_err[0.0],
          "check": "positions vs plain: eps=0 < 1e-3 px, eps=0.01 < 2e-2 px;"
                   " conv agree >= 99%"},

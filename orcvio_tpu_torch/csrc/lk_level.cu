@@ -17,13 +17,19 @@
 // tap is an exact float32 bilinear interpolation and each feature stops on
 // its own (the TPU kernel's rule at block_n = 1, and cv::TermCriteria's).
 //
-// Bound: bytes. The inputs are two (R, L) float32 windows per feature
-// (98 KB at the main path's 48 x 256), against some 20 operations per tap
-// per iteration on 225 taps, so the windows' bytes over the memory rate
-// exceed the operations over the float32 rate many times over. The kernel
-// reads only the taps it uses (a 17 x 17 and a 16 x 16 patch per
-// iteration) through L1/L2, not whole windows; the windows are K1's output,
-// and fusing K1 into K2 would keep them out of device memory altogether.
+// Bound: what the function needs, not the windows it is given. Per feature
+// it reads a (P+3)^2 block of win0 (the template's (P+2)^2 bilinear taps)
+// and, of win1, the union of the (P+1)^2 blocks at the positions it visits:
+// at most the 37 x 37 block the clamped search can reach at P = 15, so
+// 1.3 KB to 6.8 KB per feature, against some 14 operations per tap per step
+// on 225 taps. The windows as stored are 98 KB per feature (K1's output,
+// 256 lanes wide for a 36 px search); the kernel reads only the taps, from
+// L1/L2. Over the card's data-sheet rates both the bytes and the operations
+// come to well under a microsecond for 200 features (chip_smoke.py counts
+// them from each run's steps), so the kernel is latency-bound: its time is
+// the slowest feature's chain of dependent loads and block reductions.
+// Fewer launches (K1 fused into K2) and shorter chains would move it, not
+// bandwidth.
 // Every thread finishes each reduction with the same sums in the same
 // order, so every thread holds the same position and the loop's exit is
 // uniform across the block without a broadcast.
@@ -87,8 +93,10 @@ __device__ __forceinline__ float bilerp(const float* __restrict__ w, int L,
   const float* p = w + (size_t)(c.iy + i) * L + (c.ix + j);
   const float p00 = __ldg(p), p01 = __ldg(p + 1);
   const float p10 = __ldg(p + L), p11 = __ldg(p + L + 1);
-  return (1.f - c.fy) * ((1.f - c.fx) * p00 + c.fx * p01) +
-         c.fy * ((1.f - c.fx) * p10 + c.fx * p11);
+  // a row lerp, then a column lerp, as the plain version computes it
+  const float r0 = p00 * (1.f - c.fy) + p10 * c.fy;
+  const float r1 = p01 * (1.f - c.fy) + p11 * c.fy;
+  return r0 * (1.f - c.fx) + r1 * c.fx;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -5,8 +5,11 @@
 //
 //   out[n] = imgs[bidx[n], 8*r0[n] : 8*(r0[n]+nr), 128*c0[n] : 128*(c0[n]+nl)]
 //
-// Bound: bytes. The copy reads N*rows*lanes*4 bytes and writes as many and
-// does no arithmetic. Design: one block per (window, 8-row group), so a
+// Bound: bytes. The copy writes N*rows*lanes*4 bytes, must read the image
+// tiles the windows cover once each (neighbouring windows share tiles), and
+// does no arithmetic. A tile shared by several windows is read once per
+// window here, from L2 after the first. Design: one block per (window,
+// 8-row group), so a
 // 200-window level gives 1200 blocks and the card has enough in flight to
 // cover memory latency; each thread moves 16-byte float4s and neighbouring
 // threads take neighbouring addresses (a 128-lane row is 32 float4s). Window

@@ -79,22 +79,29 @@ def _poly_fit_matrix(bins: int, degree: int):
     return M.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _poly_fit_tensor(bins: int, degree: int, dtype, device):
+    return torch.as_tensor(_poly_fit_matrix(bins, degree)).to(
+        device=device, dtype=dtype)
+
+
 def equalize_hist(img, bins: int = 64, subsample: int = 4, degree: int = 8):
     """Global histogram equalization, the JAX package's "poly" mode.
 
     A `bins`-bin histogram over a `subsample`-strided pixel grid, its CDF,
     a degree-`degree` least-squares polynomial fit of the CDF (precomputed
-    float32 operator), applied to every pixel by Horner's rule."""
+    float32 operator), applied to every pixel by Horner's rule. The
+    histogram is a scatter-add into a fixed number of bins (bincount would
+    read its input's maximum back to the host)."""
     flat = torch.clamp(img, 0.0, 255.0)
     sub = flat[::subsample, ::subsample]
     idx = torch.clamp(sub / 255.0 * (bins - 1), 0.0, bins - 1.0).round()
-    hist = torch.bincount(idx.to(torch.int64).reshape(-1),
-                          minlength=bins).to(img.dtype)
+    idx = idx.to(torch.int64).reshape(-1)
+    hist = torch.zeros(bins, dtype=img.dtype, device=img.device).scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=img.dtype))
     cdf = torch.cumsum(hist, dim=0)
     cdf = cdf / cdf[-1]
-    M = torch.as_tensor(_poly_fit_matrix(bins, degree)).to(
-        device=img.device, dtype=img.dtype)
-    coef = M @ cdf  # (degree+1,)
+    coef = _poly_fit_tensor(bins, degree, img.dtype, img.device) @ cdf
     xn = flat * (1.0 / 255.0)
     out = coef[degree]
     for d in range(degree - 1, -1, -1):

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.lk_pallas import AUX_W, lk_level_fused
+from ..ops.lk_pallas import AUX_W, lk_level_fused, resample
 from ..ops.window_gather import AlignedImage, gather_windows, prepare_image
 
 SEARCH_WD = 36       # logical search-window span (patch 15 + 2*9 radius + 2)
@@ -44,29 +44,6 @@ class LevelWindows(NamedTuple):
 def prepare_pyramid(pyr):
     """Prepare each pyramid level for window gathering (once per frame)."""
     return tuple(prepare_image(img[None], margin=MARGIN) for img in pyr)
-
-
-def resample(chans, local, P: int):
-    """Bilinear (P, P) patches from per-feature windows at subpixel corners.
-
-    chans: (C, N, R, L) windows; local: (N, 2) xy window-frame coordinate of
-    the patch's (0, 0) tap. Returns (C, N, P, P): a row lerp, then a column
-    lerp, as the JAX package's CPU branch computes it."""
-    C, N, R, L = chans.shape
-    ly = torch.clamp(local[:, 1], 0.0, R - 1.001 - P)
-    lx = torch.clamp(local[:, 0], 0.0, L - 1.001 - P)
-    iy = torch.floor(ly)
-    ix = torch.floor(lx)
-    fy = (ly - iy)[None, :, None, None]
-    fx = (lx - ix)[None, :, None, None]
-    a = torch.arange(P + 1, device=chans.device)
-    rows = (iy.long()[:, None] + a)[None, :, :, None]
-    cols = (ix.long()[:, None] + a)[None, :, None, :]
-    c = torch.arange(C, device=chans.device)[:, None, None, None]
-    n = torch.arange(N, device=chans.device)[None, :, None, None]
-    sub = chans[c, n, rows, cols]  # (C, N, P+1, P+1)
-    rws = sub[:, :, :P] * (1 - fy) + sub[:, :, 1:] * fy
-    return rws[..., :P] * (1 - fx) + rws[..., 1:] * fx
 
 
 def gather_level(ai: AlignedImage, centers) -> LevelWindows:
@@ -169,4 +146,4 @@ def extract_patches(img, centers, taps):
     win, origin = gather_windows(ai, centers, int(taps[0]), P + 1,
                                  max(rows, 16), 2 * LANES)
     local = centers - origin + int(taps[0])
-    return resample(win, local, P)[0]
+    return resample(win[0], local[:, 0], local[:, 1], P)

@@ -9,6 +9,8 @@ holding a 32-bit value.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -29,6 +31,13 @@ def make_pattern(seed: int = 42):
 
 
 _PATTERN = make_pattern()
+
+
+@functools.lru_cache(maxsize=8)
+def _pattern_on(dtype, device):
+    """The default pattern, copied to the device once (a copy per frame
+    would wait for the device)."""
+    return _PATTERN.to(device=device, dtype=dtype)
 
 
 def _keypoint_patches(img, xy):
@@ -64,15 +73,17 @@ def _sample_in_patch(patches, pts):
     return col0 * (1 - fx) + col1 * fx
 
 
-def describe(img, xy, angles=None, pattern=_PATTERN):
+def describe(img, xy, angles=None, pattern=None):
     """Descriptors (N, 8) int64, each word a 32-bit value. img may be a raw
-    (H, W) image or a prepared ops.window_gather.AlignedImage."""
+    (H, W) image or a prepared ops.window_gather.AlignedImage; pattern
+    defaults to make_pattern()."""
     patches = _keypoint_patches(img, xy)
     if angles is None:
         angles = _orientation_from_patches(patches)
     c = torch.cos(angles)[:, None]
     s = torch.sin(angles)[:, None]
-    pattern = pattern.to(device=patches.device, dtype=patches.dtype)
+    pattern = (_pattern_on(patches.dtype, patches.device) if pattern is None
+               else pattern.to(device=patches.device, dtype=patches.dtype))
 
     def rot(p):  # (256, 2) pattern points -> (N, 256, 2) rotated
         return torch.stack(

@@ -104,7 +104,8 @@ def ransac_fundamental(p1, p2, valid, gumbel=None, generator=None,
     F = _eight_point(p1[idx], p2[idx])  # (Hyp, 3, 3)
     d = sampson_dist(F, p1, p2)  # (Hyp, N)
     inl = (d < thresh) & valid[None, :]
-    best = torch.argmax(torch.sum(inl, dim=1))
+    # best as a (1,) index: indexing with a 0-d tensor reads it to the host
+    best = torch.argmax(torch.sum(inl, dim=1)).reshape(1)
     # degenerate cases: too few points to vote -> keep all valid
     enough = torch.sum(valid) >= 12
-    return torch.where(enough, inl[best], valid), F[best]
+    return torch.where(enough, inl[best][0], valid), F[best][0]

@@ -6,11 +6,13 @@ the TPU kernel that issues one asynchronous HBM->VMEM copy per window.
     out[n] = imgs[bidx[n], 8*r0[n] : 8*(r0[n]+nr), 128*c0[n] : 128*(c0[n]+nl)]
 
 On the card this is ``csrc/window_gather.cu``; on the CPU the plain version
-below. Bound on the card: bytes. It moves N*rows*lanes*4 bytes in and the
-same out and does no arithmetic, so its floor is 2*N*rows*lanes*4 bytes over
-the memory rate. The kernel copies with 16-byte loads and stores, one block
-per (window, 8-row group), neighbouring threads on neighbouring addresses.
-Fusing it into K2, so that windows never reach device memory, is later work.
+below. Bound on the card: bytes. It does no arithmetic; it must read the
+image tiles the windows cover, once each (neighbouring windows share
+tiles), and write N*rows*lanes*4 bytes. The kernel copies with 16-byte
+loads and stores, one block per (window, 8-row group), neighbouring threads
+on neighbouring addresses; a tile shared by several windows is read once per
+window, from L2 after the first. Fusing it into K2, so that windows never
+reach device memory, is later work.
 """
 from __future__ import annotations
 

@@ -13,14 +13,16 @@ below eps; here each feature stops on its own (the TPU kernel's rule at
 block_n=1, and cv::TermCriteria's). eps = 0 is the fixed-count loop.
 
 On the card this is ``csrc/lk_level.cu``; on the CPU the plain version
-below. Bound on the card: bytes. The inputs are two (N, R, L) float32
-windows, 98 KB per feature at the main path's (48, 256), against about
-20 operations per tap per iteration on 225 taps; the windows' bytes over
-the memory rate exceed the operations over the float32 rate many times
-over. The kernel reads only the taps it needs (a 17x17 and a 16x16 patch
-per iteration, from L1/L2), one block of 256 threads per feature, the
-template in shared memory, warp-shuffle reductions. The window tensors
-themselves are K1's output: fusing K1 into K2 removes them.
+below. Bound on the card: the taps the function needs, not the windows it
+is given: per feature a (P+3)^2 block of win0 and, of win1, the union of
+the (P+1)^2 blocks at the positions it visits (at most 37x37 at P = 15),
+1.3 KB to 6.8 KB against the windows' 98 KB, and some 14 operations per tap
+per step on 225 taps. Both come to well under a microsecond for 200
+features, so the kernel is latency-bound: one block of 256 threads per
+feature, the template in shared memory, warp-shuffle reductions, and its
+time the slowest feature's chain of dependent loads and reductions. The
+window tensors themselves are K1's output: fusing K1 into K2 removes them
+and a launch per level.
 """
 from __future__ import annotations
 
@@ -36,10 +38,13 @@ AUX_W = 16
 MAX_PATCH = 31  # largest patch the kernel's shared arrays hold
 
 
-def _resample(win, lx, ly, P: int):
+def resample(win, lx, ly, P: int):
     """Bilinear (P, P) patches of win (N, R, L) with (0, 0) tap at window
-    coordinates (lx, ly), each (N,). Same clamp and lerp order as the
-    kernels: (1-fy)*((1-fx)*p00 + fx*p01) + fy*((1-fx)*p10 + fx*p11)."""
+    coordinates (lx, ly), each (N,), clamped so that every tap lies in the
+    window. A row lerp, then a column lerp, as the JAX package's CPU branch
+    of ``frontend/klt.py:resample`` and the kernel compute it. The one
+    sampler of the port: K2's plain version and ORB's patch reads
+    (``frontend/klt.py:extract_patches``) both use it."""
     N, R, L = win.shape
     ly = torch.clamp(ly, 0.0, R - 1.001 - P)
     lx = torch.clamp(lx, 0.0, L - 1.001 - P)
@@ -52,10 +57,8 @@ def _resample(win, lx, ly, P: int):
     cols = ix.long()[:, None] + a
     n = torch.arange(N, device=win.device)[:, None, None]
     sub = win[n, rows[:, :, None], cols[:, None, :]]  # (N, P+1, P+1)
-    p00, p01 = sub[:, :P, :P], sub[:, :P, 1:]
-    p10, p11 = sub[:, 1:, :P], sub[:, 1:, 1:]
-    return ((1 - fy) * ((1 - fx) * p00 + fx * p01)
-            + fy * ((1 - fx) * p10 + fx * p11))
+    rws = sub[:, :P] * (1 - fy) + sub[:, 1:] * fy
+    return rws[..., :P] * (1 - fx) + rws[..., 1:] * fx
 
 
 def lk_level_fused_plain(win0, win1, aux, iters: int, patch: int,
@@ -67,7 +70,7 @@ def lk_level_fused_plain(win0, win1, aux, iters: int, patch: int,
     col = lambda j: aux[:, j]  # noqa: E731
     lo_x, lo_y, hi_x, hi_y = col(4), col(5), col(6), col(7)
 
-    tp = _resample(win0, col(0) - (r + 1), col(1) - (r + 1), P + 2)
+    tp = resample(win0, col(0) - (r + 1), col(1) - (r + 1), P + 2)
     t = tp[:, 1:-1, 1:-1]
     tgx = 0.5 * (tp[:, 1:-1, 2:] - tp[:, 1:-1, :-2])
     tgy = 0.5 * (tp[:, 2:, 1:-1] - tp[:, :-2, 1:-1])
@@ -84,7 +87,7 @@ def lk_level_fused_plain(win0, win1, aux, iters: int, patch: int,
     for _ in range(iters):
         active = dn > eps
         steps = steps + active.to(steps.dtype)
-        cur = _resample(win1, lx - r, ly - r, P)
+        cur = resample(win1, lx - r, ly - r, P)
         err = cur - t
         b1 = torch.sum(tgx * err, dim=(1, 2))
         b2 = torch.sum(tgy * err, dim=(1, 2))
@@ -93,7 +96,7 @@ def lk_level_fused_plain(win0, win1, aux, iters: int, patch: int,
         lx = torch.where(active, torch.clamp(lx - dx, lo_x, hi_x), lx)
         ly = torch.where(active, torch.clamp(ly - dy, lo_y, hi_y), ly)
         dn = torch.where(active, torch.sqrt(dx * dx + dy * dy), dn)
-    cur = _resample(win1, lx - r, ly - r, P)
+    cur = resample(win1, lx - r, ly - r, P)
     res = torch.sum(torch.abs(cur - t), dim=(1, 2)) / (P * P)
     z = torch.zeros_like(lx)
     return torch.stack([lx, ly, res, dn, det, steps, z, z], dim=1)

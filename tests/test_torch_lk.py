@@ -18,10 +18,11 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from orcvio_tpu.frontend.klt import (
-    ROWS, LANES, SEARCH_WD, LevelWindows, _lk_iterate, _template,
+    ROWS, LANES, SEARCH_WD, LevelWindows, _lk_iterate, _template, resample,
 )
 from orcvio_tpu.ops import lk_pallas as jlk
 from orcvio_tpu_torch.frontend import klt as pklt
+from orcvio_tpu_torch.ops import lk_pallas as plk
 from orcvio_tpu_torch.ops.lk_pallas import AUX_W, lk_level_fused
 
 torch.set_num_threads(1)
@@ -68,6 +69,25 @@ def _make_case(n, shift_scale=3.0, seed=0):
                    + ay * ax_ * img[g2y + 1, g2x + 1])
     xy0 = np.stack([cx, cy], axis=1)
     return win0, win1, origin, start, xy0, shifts
+
+
+@pytest.mark.parametrize("P", [15, 17, 33])
+def test_resample_equals_jax_cpu_branch(P):
+    """The port's one bilinear sampler (K2's plain version and ORB's patch
+    reads) is bit-identical to the JAX package's CPU branch in float64,
+    corners clamped at both window edges included."""
+    rng = np.random.default_rng(P)
+    n, R, L = 24, 48, 2 * LANES
+    win = rng.uniform(0.0, 255.0, size=(n, R, L))
+    local = np.stack([rng.uniform(-3.0, L - P + 2.0, n),
+                      rng.uniform(-3.0, R - P + 2.0, n)], axis=1)
+    ref = np.asarray(resample(jnp.asarray(win)[None], jnp.asarray(local),
+                              P))[0]
+    ours = plk.resample(torch.tensor(win), torch.tensor(local[:, 0]),
+                        torch.tensor(local[:, 1]), P).numpy()
+    assert ours.shape == (n, P, P)
+    np.testing.assert_array_equal(ours, ref)
+    assert pklt.resample is plk.resample
 
 
 def _lw(mod, win, origin, start, to):
