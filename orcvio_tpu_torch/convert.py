@@ -1,21 +1,31 @@
 """Carry state from the JAX package into the port.
 
-The tracker has no weights; its state is the previous frame's prepared
-pyramid and the track table. ``tracker_state_from_numpy`` takes that state
-as numpy arrays (the JAX ``TrackerState`` read out field by field) and
-returns the port's ``TrackerState``, so both packages can run onward from
-the same mid-sequence state.
+The system has no weights; its state is the tracker's (the previous
+frame's prepared pyramid and the track table) and the VIO state (filter
+and static initializer). ``tracker_state_from_numpy`` and
+``vio_state_from_numpy`` take that state as numpy arrays (the JAX states
+read out field by field) and return the port's, so both packages can run
+onward from the same mid-sequence state.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .filter.state import (CloneStates, FeatureTable, FilterState, ImuState,
+                           NuiClones)
 from .frontend.klt import MARGIN
 from .frontend.tracker import TrackerConfig, TrackerState, level_shapes
+from .init.static_init import StaticInitState
 from .ops.dma_gather import BL, BR
 from .ops.window_gather import AlignedImage
+
+_IMU = {k: ImuState for k in ("imu", "imu_old", "imu_fej_now", "imu_fej_old")}
+_FIELD_TYPES = {FilterState: {**_IMU, "clones": CloneStates,
+                              "features": FeatureTable, "nui": NuiClones}}
 
 
 def tracker_state_from_numpy(d: dict, tc: TrackerConfig, dtype=torch.float32,
@@ -50,3 +60,54 @@ def tracker_state_from_numpy(d: dict, tc: TrackerConfig, dtype=torch.float32,
         next_id=put(d["next_id"], torch.int32),
         rng=torch.Generator(device=device).manual_seed(seed),
     )
+
+
+def _state_from_numpy(cls, d, dtype, device):
+    """A state dataclass from a nested dict of numpy arrays: floating
+    fields take `dtype`, integer fields int32, boolean fields bool."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = d[f.name]
+        if isinstance(v, dict):
+            kw[f.name] = _state_from_numpy(_FIELD_TYPES[cls][f.name], v, dtype,
+                                           device)
+            continue
+        a = np.require(np.asarray(v), requirements="W")
+        dt = (dtype if a.dtype.kind == "f" else
+              torch.bool if a.dtype.kind == "b" else torch.int32)
+        kw[f.name] = torch.as_tensor(a).to(device=device, dtype=dt)
+    return cls(**kw)
+
+
+def filter_state_from_numpy(d: dict, dtype=torch.float32, device=None):
+    """d: the JAX ``FilterState`` as nested dicts of numpy arrays."""
+    return _state_from_numpy(FilterState, d, dtype, resolve_device(device))
+
+
+def vio_state_from_numpy(d: dict, dtype=torch.float32, device=None):
+    """d: the JAX ``VioState`` as nested dicts of numpy arrays, one key per
+    field ({"filter": {"t", "imu": {"R", ...}, ..., "P", ...}, "sinit":
+    {...}}). Returns the port's ``VioState``; ``host_initialized`` is
+    read from the filter's ``initialized`` flag."""
+    from .vio import VioState
+
+    device = resolve_device(device)
+    vs = VioState(
+        filter=filter_state_from_numpy(d["filter"], dtype, device),
+        sinit=_state_from_numpy(StaticInitState, d["sinit"], dtype, device))
+    return vs.replace(host_initialized=bool(np.asarray(
+        d["filter"]["initialized"])))
+
+
+def state_to_numpy(tree) -> dict:
+    """A JAX flax struct or a port state dataclass as nested dicts of numpy
+    arrays (the layout the two converters read)."""
+    out = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = state_to_numpy(v)
+        elif not isinstance(v, bool):
+            out[f.name] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                           else np.asarray(v))
+    return out

@@ -4,8 +4,9 @@ step after another.
 Counterpart of ``orcvio_tpu/eval/staged.py``. The JAX package compiles the
 whole replay into one ``lax.scan``; here a Python loop runs the frame steps
 over device-resident uint8 images, and nothing inside the loop waits for
-the device. Only the front end is ported so far (``make_tracker_scan``);
-the end-to-end replay with the filter is the next slice.
+the device. ``make_e2e_replay`` runs the tracker and then ``vio_step``
+(static init, then the filter) per frame; ``make_tracker_scan`` runs the
+front end alone. After initialization the loop reads nothing back.
 """
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import resolve_device
-from ..filter.pipeline import FrameInput
+from .. import no_tf32, resolve_device
+from ..config.core import FilterConfig, require_supported
+from ..filter.pipeline import FrameInput, build_chi2_table
 from ..frontend.tracker import TrackerConfig, TrackerState, process_frame
+from ..vio import VioState, vio_step
 
 
 class StagedInputs(NamedTuple):
@@ -47,6 +50,69 @@ def stage_sequence(images_u8: np.ndarray, frame_ts, imu_t, imu_gyro, imu_acc,
     )
 
 
+def _track(tc: TrackerConfig, ts: TrackerState, staged: StagedInputs, k: int,
+           R_b2c, dtype, ransac_gumbel=None):
+    """Frame k through the front end: (tracker state, FrameInput)."""
+    im = staged.imu_mask[k]
+    denom = torch.clamp(torch.sum(im), min=1)
+    mean_gyro = torch.sum(torch.where(im[:, None], staged.imu_gyro[k], 0.0),
+                          dim=0) / denom
+    ts, tout = process_frame(
+        tc, ts, staged.images[k].to(dtype), staged.frame_ts[k], mean_gyro,
+        R_b2c, frame_idx=k,
+        ransac_gumbel=None if ransac_gumbel is None else ransac_gumbel[k])
+    frame = FrameInput(
+        t=staged.frame_ts[k], imu_t=staged.imu_t[k],
+        imu_gyro=staged.imu_gyro[k], imu_acc=staged.imu_acc[k],
+        imu_mask=staged.imu_mask[k], fids=tout.fids, uvs=tout.uvs,
+        uv_vels=tout.uv_vels, meas_mask=tout.meas_mask)
+    return ts, frame
+
+
+def make_e2e_replay(cfg: FilterConfig, tc: TrackerConfig, R_b2c, t_c_b,
+                    dtype=torch.float32, device=None):
+    """Build replay(tracker_state, vio_state, staged, ransac_gumbel=None,
+    frames=None) -> ((tracker_state, vio_state), outs).
+
+    outs: dict of per-frame stacked "p", "R", "v", "n_upd", "zupt" (as
+    the JAX package's) and "initialized" (the filter's flag after the
+    frame: true from the frame static init ends on).
+    frames: a range of frame indices to run (default: all); the frame index
+    sets the detection cadence, as in the JAX package's scan. ransac_gumbel:
+    optional per-frame (T, 128, 8, N) RANSAC noise (tests pass the JAX
+    package's draws). Timestamps are used as given; a caller with absolute
+    epochs rebases them first, since float32 cannot hold them.
+    """
+    require_supported(cfg)
+    device = resolve_device(device)
+    no_tf32()
+    chi2 = build_chi2_table(cfg, dtype, device)
+    R_b2c = torch.as_tensor(np.asarray(R_b2c)).to(device=device, dtype=dtype)
+    t_c_b = torch.as_tensor(np.asarray(t_c_b)).to(device=device, dtype=dtype)
+
+    def replay(tracker_state: TrackerState, vio_state: VioState,
+               staged: StagedInputs, ransac_gumbel=None, frames=None):
+        # pin the camera-imu extrinsics into the filter state, so a caller
+        # cannot run with the default identity extrinsics by accident
+        vs = vio_state.replace(filter=vio_state.filter.replace(
+            R_b2c=R_b2c, t_c_b=t_c_b))
+        ts = tracker_state
+        outs, inits = [], []
+        for k in (range(staged.images.shape[0]) if frames is None else frames):
+            ts, frame = _track(tc, ts, staged, k, R_b2c, dtype, ransac_gumbel)
+            vs, fout = vio_step(cfg, vs, frame, chi2)
+            outs.append(fout)
+            inits.append(vs.filter.initialized)
+        stacked = {name: torch.stack([getattr(o, field) for o in outs])
+                   for name, field in (("p", "p"), ("R", "R"), ("v", "v"),
+                                       ("n_upd", "n_update_features"),
+                                       ("zupt", "zupt"))}
+        stacked["initialized"] = torch.stack(inits)
+        return (ts, vs), stacked
+
+    return replay
+
+
 def make_tracker_scan(tc: TrackerConfig, R_b2c, dtype=torch.float32,
                       device=None):
     """Build scan(tracker_state, staged, ransac_gumbel=None) ->
@@ -64,25 +130,8 @@ def make_tracker_scan(tc: TrackerConfig, R_b2c, dtype=torch.float32,
         ts = tracker_state
         outs = []
         for k in range(staged.images.shape[0]):
-            im = staged.imu_mask[k]
-            denom = torch.clamp(torch.sum(im), min=1)
-            mean_gyro = torch.sum(
-                torch.where(im[:, None], staged.imu_gyro[k], 0.0),
-                dim=0) / denom
-            ts, tout = process_frame(
-                tc, ts, staged.images[k].to(dtype), staged.frame_ts[k],
-                mean_gyro, R_b2c, frame_idx=k,
-                ransac_gumbel=None if ransac_gumbel is None
-                else ransac_gumbel[k])
-            outs.append(tout)
-        frames = FrameInput(
-            t=staged.frame_ts, imu_t=staged.imu_t, imu_gyro=staged.imu_gyro,
-            imu_acc=staged.imu_acc, imu_mask=staged.imu_mask,
-            fids=torch.stack([o.fids for o in outs]),
-            uvs=torch.stack([o.uvs for o in outs]),
-            uv_vels=torch.stack([o.uv_vels for o in outs]),
-            meas_mask=torch.stack([o.meas_mask for o in outs]),
-        )
-        return ts, frames
+            ts, frame = _track(tc, ts, staged, k, R_b2c, dtype, ransac_gumbel)
+            outs.append(frame)
+        return ts, FrameInput(*(torch.stack(x) for x in zip(*outs)))
 
     return scan

@@ -4,6 +4,7 @@
   orcvio_tpu (by name or as a dotted submodule).
 * Importing the whole port leaves jax out of sys.modules.
 * Entry points without device= run on CUDA, and raise where there is none.
+* Filter flags the port does not run yet raise NotImplementedError.
 * Kernel wrappers given CPU tensors take the plain versions: their launch
   counters stay at 0.
 """
@@ -18,10 +19,15 @@ import pytest
 import torch
 
 import orcvio_tpu_torch
-from orcvio_tpu_torch.eval.staged import make_tracker_scan, stage_sequence
+from orcvio_tpu_torch.config.core import FilterConfig
+from orcvio_tpu_torch.eval.staged import (make_e2e_replay, make_tracker_scan,
+                                          stage_sequence)
+from orcvio_tpu_torch.filter.state import FilterState
 from orcvio_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
+from orcvio_tpu_torch.ops.cov_update import cov_update
 from orcvio_tpu_torch.ops.dma_gather import dma_gather_tiles
 from orcvio_tpu_torch.ops.lk_pallas import AUX_W, lk_level_fused
+from orcvio_tpu_torch.vio import VioState
 
 torch.set_num_threads(1)
 
@@ -61,12 +67,27 @@ def test_port_import_leaves_jax_unloaded():
                    timeout=120)
 
 
+FILTER_FLAGS = dict(sw_size=4, max_features=8, use_larvio=True,
+                    use_left_perturbation=False, use_closed_form_cov_prop=True,
+                    if_zupt=True, feature_idp_dim=1, ekf_feature_cap=2)
+
+
 def test_entry_points_need_a_device():
     tc = TrackerConfig(height=64, width=96, capacity=8, pyramid_levels=2)
+    cfg = FilterConfig(**FILTER_FLAGS)
     if torch.cuda.is_available():
         assert callable(make_tracker_scan(tc, np.eye(3)))
+        assert callable(make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3)))
         assert TrackerState.create(tc).xy.is_cuda
+        assert FilterState.create(cfg).P.is_cuda
+        assert VioState.create(cfg, 8).sinit.ref_uv.is_cuda
         return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FilterState.create(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VioState.create(cfg, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_tracker_scan(tc, np.eye(3))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -77,9 +98,20 @@ def test_entry_points_need_a_device():
                        np.zeros((1, 2, 3)), np.ones((1, 2), bool))
 
 
+def test_unported_filter_flags_raise():
+    tc = TrackerConfig(height=64, width=96, capacity=8, pyramid_levels=2)
+    for flag in ({"use_larvio": False}, {"use_left_perturbation": True},
+                 {"joseph_form": True}, {"update_form": "qr"},
+                 {"if_fej": True}, {"estimate_td": True}):
+        cfg = FilterConfig(**{**FILTER_FLAGS, **flag})
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3), device="cpu")
+
+
 def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
     monkeypatch.setattr(dma_gather_tiles, "launches", 0)
     monkeypatch.setattr(lk_level_fused, "launches", 0)
+    monkeypatch.setattr(cov_update, "launches", 0)
     imgs = torch.rand(1, 64, 256)
     idx = torch.zeros(3, dtype=torch.int32)
     win = dma_gather_tiles(imgs, idx, idx, idx, 6, 2)
@@ -88,5 +120,10 @@ def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
     aux[:, 4:6], aux[:, 6:8] = 10.0, 30.0
     out = lk_level_fused(win, win, aux, 3, 15)
     assert win.shape == (3, 48, 256) and out.shape == (3, 8)
+    P = torch.eye(4, dtype=torch.float64)
+    cov = cov_update(P, torch.ones(4, 2, dtype=torch.float64),
+                     torch.ones(2, 4, dtype=torch.float64))
+    assert torch.equal(cov, cov.T)
     assert dma_gather_tiles.launches == 0
     assert lk_level_fused.launches == 0
+    assert cov_update.launches == 0
