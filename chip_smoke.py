@@ -34,7 +34,18 @@ Phases:
  6. K4 against its plain version on the (P, K, H) the replay gave it (the
     stacked, last-chance and ZUPT updates) and on random (172, 444)
     inputs in float32 and float64, within the rounding bound and exactly
-    symmetric; its times beside its bound.
+    symmetric; its times beside its bound;
+ 7. the K3 path at the bench front end's configuration: klt.track_level at
+    each of the 3 levels on frame pairs of phase 2's known-flow stream (200
+    features, windows (200, 48, 256)), its K3 launches counted; K3 against
+    its plain version and against the K2 path (eps = 0) on those windows;
+    pyr_track's flow error on the stream; N = 0; K3's times beside its
+    bound;
+ 8. the K5 path: the ported window-extraction race (T = 30 frames, B = 1
+    and 8, us per extract for the plain and K5 variants), its K5 launches
+    counted; K5 bit-exact against its plain version at B = 1 and 8 (N =
+    200), N = 13, N = 0 and origins at the image's edges; its times beside
+    its bound and an advanced-indexing gather's.
 
 Prints JSON lines; the last line is {"ok": true, "device": {...}}. Exits
 non-zero, without that line, on any failed check, where CUDA is not
@@ -98,6 +109,8 @@ JAX_E2E = {"ate_m": 0.051423995215992765, "init_frame": 20,
 # about twice it: the RANSAC draws differ between the packages, so the two
 # runs track other features and differ as two seeds of one filter do.
 ATE_MARGIN_M = 0.05
+K3_FRAMES = 3   # frame pairs of the known-flow stream for the K3 path
+RACE_REPS = 5   # timed passes of the race, as scripts/race_extract.py
 
 
 def check(ok: bool, what: str) -> None:
@@ -290,29 +303,63 @@ def k1_needed_bytes(imgs, r0, c0, nr, nl):
     return int(cover.sum()) * tile + N * nr * nl * tile + 3 * N * 4
 
 
+def visited_px(win, P, positions):
+    """Distinct pixels of win (N, R, L) that the (P+1)^2 bilinear blocks of
+    a (P, P) patch read at each of `positions`, (N, 2) window-local patch
+    centres."""
+    import torch
+
+    N, R, L = win.shape
+    r = (P - 1) // 2
+    seen = torch.zeros((N, R, L), dtype=torch.bool, device=win.device)
+    n = torch.arange(N, device=win.device)[:, None, None]
+    a = torch.arange(P + 1, device=win.device)
+    for pos in positions:
+        ly = torch.clamp(pos[:, 1] - r, 0.0, R - 1.001 - P)
+        lx = torch.clamp(pos[:, 0] - r, 0.0, L - 1.001 - P)
+        rows = torch.floor(ly).long()[:, None] + a
+        cols = torch.floor(lx).long()[:, None] + a
+        seen[n, rows[:, :, None], cols[:, None, :]] = True
+    return int(seen.sum())
+
+
 def k2_needed_bytes(win0, win1, aux, iters, P, eps, plain):
     """Bytes K2's function must move for this data: per feature the
     (P+3)^2 block of win0 its template reads and the union of the (P+1)^2
     blocks of win1 at every position it visits (the plain version run for
     0..iters steps gives them), aux read once and the (N, 8) output written
     once. Not the windows as stored: the function reads only these taps."""
-    import torch
-
-    N, R, L = win1.shape
-    r = (P - 1) // 2
-    seen = torch.zeros((N, R, L), dtype=torch.bool, device=win1.device)
-    n = torch.arange(N, device=win1.device)[:, None, None]
-    a = torch.arange(P + 1, device=win1.device)
-    for k in range(iters + 1):
-        pos = plain(win0, win1, aux, k, P, eps)[:, :2]
-        ly = torch.clamp(pos[:, 1] - r, 0.0, R - 1.001 - P)
-        lx = torch.clamp(pos[:, 0] - r, 0.0, L - 1.001 - P)
-        rows = torch.floor(ly).long()[:, None] + a
-        cols = torch.floor(lx).long()[:, None] + a
-        seen[n, rows[:, :, None], cols[:, None, :]] = True
-    win1_px = int(seen.sum())
+    N = win1.shape[0]
+    win1_px = visited_px(win1, P, (plain(win0, win1, aux, k, P, eps)[:, :2]
+                                   for k in range(iters + 1)))
     return (4 * (N * (P + 3) ** 2 + win1_px + aux.numel() + N * 8),
             win1_px / N)
+
+
+def k3_needed_bytes(win, t, tgx, tgy, aux, iters, P, plain):
+    """Bytes K3's function must move for this data: the template t, tgx,
+    tgy and aux read once, the (N, 8) output written once, and of win the
+    union of the (P+1)^2 blocks at every position it visits (the plain
+    version run for 0..iters steps gives them)."""
+    N = win.shape[0]
+    win_px = visited_px(win, P, (plain(win, t, tgx, tgy, aux, k, P)[:, :2]
+                                 for k in range(iters + 1)))
+    return 4 * (3 * N * P * P + win_px + aux.numel() + N * 8), win_px / N
+
+
+def k5_needed_bytes(imgp, y, x64, rows, lanes):
+    """Bytes K5's function must move: the image pixels its windows cover,
+    read once (windows overlap), the windows and offsets written once, and
+    the (B, N) origins read once."""
+    import torch
+
+    B, N = y.shape
+    cover = torch.zeros(imgp.shape, dtype=torch.bool, device=imgp.device)
+    r = y.long()[..., None] + torch.arange(rows, device=imgp.device)
+    c = x64.long()[..., None] + torch.arange(lanes, device=imgp.device)
+    b = torch.arange(B, device=imgp.device)[:, None, None, None]
+    cover[b, r[..., :, None], c[..., None, :]] = True
+    return 4 * (int(cover.sum()) + B * N * rows * lanes + 3 * B * N)
 
 
 def profile_frames(run, n):
@@ -404,8 +451,10 @@ def main() -> int:
         from orcvio_tpu_torch.ops.dma_gather import (
             BL, BR, dma_gather_tiles, dma_gather_tiles_plain)
         from orcvio_tpu_torch.ops.lk_pallas import (
-            lk_level_fused, lk_level_fused_plain)
+            lk_iterate_fused, lk_iterate_fused_plain, lk_level_fused,
+            lk_level_fused_plain)
         from orcvio_tpu_torch.ops.window_gather import window_origins
+        from orcvio_tpu_torch.scripts import race_extract as race
         from orcvio_tpu_torch.vio import VioState
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}",
@@ -847,6 +896,195 @@ def main() -> int:
          "check": "vs plain on the replay's q=444/384/9 inputs and random "
                   "(172,444) f32/f64: within the rounding bound, exactly "
                   "symmetric"})
+    # ---------------- 7. the K3 path ----------------
+    # track_level at every level on K3_FRAMES frame pairs of the known-flow
+    # stream, at 200 seeded positions: windows (200, 48, 256), the flow
+    # 1.3, -0.7 px a frame at level 0
+    levels, P, iters = tc.pyramid_levels, tc.patch_size, tc.klt_iters
+    pyrs = [build_pyramid(equalize_hist(torch.as_tensor(
+        seq[0][k], device=dev).to(torch.float32)), levels)
+        for k in range(K3_FRAMES + 1)]
+    xy = torch.as_tensor(np.random.default_rng(7).uniform(
+        [24, 24], [tc.width - 24, tc.height - 24], size=(tc.capacity, 2)),
+        dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    lk_iterate_fused.launches = 0
+    dma_gather_tiles.launches = 0
+    lk_level_fused.launches = 0
+    tl = [klt.track_level(pyrs[k][lv], pyrs[k + 1][lv], xy / 2.0 ** lv,
+                          xy / 2.0 ** lv, P, iters, klt.KLT_EPS)
+          for k in range(K3_FRAMES) for lv in range(levels)]
+    torch.cuda.synchronize()
+    k3_launches = lk_iterate_fused.launches
+    n_calls = K3_FRAMES * levels
+    check(k3_launches == n_calls
+          and dma_gather_tiles.launches == 2 * n_calls
+          and lk_level_fused.launches == 0,
+          f"K3 launches {k3_launches} == {n_calls} track_level calls, K1 "
+          f"{dma_gather_tiles.launches} == 2 x {n_calls}, K2 "
+          f"{lk_level_fused.launches} == 0")
+    shift = torch.tensor(SHIFT, device=dev)
+    l0_err = torch.cat([torch.linalg.norm(p - xy - shift, dim=1)[conv]
+                        for p, _, conv in tl[::levels]]).cpu().numpy()
+    check(l0_err.size >= 0.5 * K3_FRAMES * tc.capacity
+          and np.median(l0_err) < 0.1,
+          f"track_level level 0: {l0_err.size} converged, median flow "
+          f"error {np.median(l0_err):.4f} px < 0.1")
+
+    k3_cases = []
+    for lv in range(levels):
+        c = xy / 2.0 ** lv
+        lw0 = klt.gather_level(klt.prepare_pyramid(pyrs[0])[lv], c)
+        lw1 = klt.gather_level(klt.prepare_pyramid(pyrs[1])[lv], c)
+        tmpl = klt._template(lw0, c, P)
+        aux, lo, hi = klt._iterate_aux(lw1, tmpl, c, P)
+        k3_cases.append((f"L{lv}", lw0, lw1, c, tmpl, aux, lo, hi))
+    k3_err, k3_k2_err = 0.0, 0.0
+    for name, lw0, lw1, c, tmpl, aux, lo, hi in k3_cases:
+        a = lk_iterate_fused(lw1.win, *tmpl[:3], aux, iters, P)
+        p = lk_iterate_fused_plain(lw1.win, *tmpl[:3], aux, iters, P)
+        err = float((a[:, :2] - p[:, :2]).abs().max())
+        k3_err = max(k3_err, err)
+        ca, cp = (klt._converged(o[:, :2], o[:, 3], tmpl[6], lo, hi)
+                  for o in (a, p))
+        agree = float((ca == cp).float().mean())
+        zeros = bool((a[:, 4:] == 0).all())
+        check(err < 1e-3 and agree >= 0.99 and zeros,
+              f"K3 {name}: max |dpos| {err:.2e} < 1e-3 against the plain "
+              f"version, conv agree {agree:.3f} >= 0.99, columns 4-7 zero")
+        aux2, _, _ = klt._level_aux(lw0, lw1, c, c, P)
+        k2 = lk_level_fused(lw0.win, lw1.win, aux2, iters, P, 0.0)
+        err2 = float((a[:, :2] - k2[:, :2]).abs().max())
+        k3_k2_err = max(k3_k2_err, err2)
+        check(err2 < 1e-3, f"K3 path {name}: max |dpos| {err2:.2e} < 1e-3 "
+                           "against the K2 path at eps = 0")
+    pt_err, pt_ok = [], 0
+    for k in range(K3_FRAMES):
+        res = klt.pyr_track(pyrs[k], pyrs[k + 1], xy, xy, P, iters)
+        pt_err.append(torch.linalg.norm(res.xy - xy - shift, dim=1)[res.ok])
+        pt_ok += int(res.ok.sum())
+    pt_err = torch.cat(pt_err).cpu().numpy()
+    check(pt_ok >= 0.5 * K3_FRAMES * tc.capacity
+          and np.median(pt_err) < 0.1,
+          f"pyr_track: {pt_ok} tracked, median flow error "
+          f"{np.median(pt_err):.4f} px < 0.1")
+    empty = klt.track_level(pyrs[0][0], pyrs[1][0], xy[:0], xy[:0], P,
+                            iters, klt.KLT_EPS)
+    e_aux = k3_cases[0][5][:0]
+    e_out = lk_iterate_fused(k3_cases[0][2].win[:0], *(
+        x[:0] for x in k3_cases[0][4][:3]), e_aux, iters, P)
+    check([tuple(x.shape) for x in empty] == [(0, 2), (0,), (0,)]
+          and tuple(e_out.shape) == (0, 8),
+          "K3 path N = 0: track_level gives (0, 2), (0,), (0,); K3 (0, 8)")
+
+    # times at level 0, (200, 48, 256)
+    _, _, lw1, _, tmpl, aux, _, _ = k3_cases[0]
+    N3 = aux.shape[0]
+    k3_call = lambda: lk_iterate_fused(lw1.win, *tmpl[:3], aux,  # noqa: E731
+                                       iters, P)
+    k3_ms = time_ms(k3_call)
+    k3_call_ms = time_ms(k3_call, preload=False)
+    k3_plain_ms = time_ms(lambda: lk_iterate_fused_plain(
+        lw1.win, *tmpl[:3], aux, iters, P), reps=20, preload=False)
+    k3_bytes, k3_px = k3_needed_bytes(lw1.win, *tmpl[:3], aux, iters, P,
+                                      lk_iterate_fused_plain)
+    # per step: P^2 taps of bilinear, error and two products (14) + the
+    # 2x2 solve (20); residual: P^2 x 12
+    k3_ops = N3 * (iters * (P * P * 14 + 20) + P * P * 12)
+    k3_bound, k3_by = bound_ms(k3_bytes, k3_ops)
+    emit({"k3_path": {"track_level_calls": n_calls, "launches": k3_launches,
+                      "level0_flow_err_median_px": float(np.median(l0_err)),
+                      "pyr_track_flow_err_median_px":
+                          float(np.median(pt_err)),
+                      "pyr_track_tracked": pt_ok,
+                      "max_abs_err_vs_plain": k3_err,
+                      "max_abs_err_vs_k2_path": k3_k2_err}})
+    kernels.append(
+        {"name": "lk_iterate", "route": "cuda",
+         "source": "orcvio_tpu_torch/csrc/lk_iterate.cu",
+         "replaces": "orcvio_tpu/ops/lk_pallas.py:265",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None,
+         "shape": f"win ({N3},48,256), t/tgx/tgy ({N3},{P},{P}), "
+                  f"aux ({N3},16), {iters} steps",
+         "bytes": k3_bytes, "ops": k3_ops, "win_px_per_feature": k3_px,
+         "call_ms": k3_call_ms, "max_abs_err_vs_k2_path": k3_k2_err,
+         "check": "positions vs plain < 1e-3 px, conv agree >= 99%, "
+                  "columns 4-7 zero, at 3 levels; vs the K2 path < 1e-3 px"})
+
+    # ---------------- 8. the K5 path ----------------
+    race.extract_pallas.launches = 0
+    t0 = time.perf_counter()
+    race_us = race.main(dev, frames=race.T, reps=RACE_REPS)
+    torch.cuda.synchronize()
+    race_s = time.perf_counter() - t0
+    k5_launches = race.extract_pallas.launches
+    # the K5 variant at B = 1 and 8: one untimed pass and RACE_REPS timed
+    # passes of T frames, one launch a frame
+    want = 2 * (1 + RACE_REPS) * race.T
+    check(k5_launches == want,
+          f"K5 launches in the race {k5_launches} == {want}")
+
+    imgs, oys, oxs = (torch.as_tensor(x, device=dev)
+                      for x in race.draws(frames=8))
+    imgp = race.prep(imgs)
+    edge_y, edge_x = oys[:1].clone(), oxs[:1].clone()
+    edge_y[0, :8] = torch.tensor([0, 0, race.HP - race.WD,
+                                  race.HP - race.WD, -5, race.HP, 1, 300])
+    edge_x[0, :8] = torch.tensor([0, race.WP - 65, 0, race.WP - 65,
+                                  race.WP - 40, -3, 767, race.WP])
+    k5_cases = [("B=1 N=200", imgp[:1], oys[:1], oxs[:1]),
+                ("B=8 N=200", imgp, oys, oxs),
+                ("B=2 N=13", imgp[:2], oys[:2, :13].contiguous(),
+                 oxs[:2, :13].contiguous()),
+                ("B=8 N=0", imgp, oys[:, :0], oxs[:, :0]),
+                ("B=1 edges", imgp[:1], edge_y, edge_x)]
+    k5_exact = True
+    for name, im, oy, ox in k5_cases:
+        w, off = race.extract_pallas(im, oy, ox)
+        wp, offp = race.extract_dynslice(im, oy, ox)
+        exact = (torch.equal(w, wp) and torch.equal(off, offp)
+                 and tuple(w.shape) == (*oy.shape, race.WD, race.LANES))
+        k5_exact &= exact
+        check(exact, f"K5 {name}: windows and offsets bit-exact against "
+                     "the plain version")
+
+    # times at the race's B = 8 shape
+    B5, N5 = oys.shape
+    k5_call = lambda: race.extract_pallas(imgp, oys, oxs)  # noqa: E731
+    k5_ms = time_ms(k5_call)
+    k5_call_ms = time_ms(k5_call, preload=False)
+    k5_plain_ms = time_ms(lambda: race.extract_dynslice(imgp, oys, oxs),
+                          reps=20, preload=False)
+    y5, x64, _ = race._origins(imgp, oys, oxs)
+    rows = y5.long()[..., None] + torch.arange(race.WD, device=dev)
+    cols = x64.long()[..., None] + torch.arange(race.LANES, device=dev)
+    b5 = torch.arange(B5, device=dev)[:, None, None, None]
+    ri, ci = rows[..., :, None], cols[..., None, :]
+    check(bool(torch.equal(imgp[b5, ri, ci], k5_call()[0])),
+          "K5 yardstick gather equals the kernel")
+    k5_lib_ms = time_ms(lambda: imgp[b5, ri, ci])
+    k5_bytes = k5_needed_bytes(imgp, y5, x64, race.WD, race.LANES)
+    k5_bound, k5_by = bound_ms(k5_bytes, 0)
+    emit({"k5_path": {"race_us_per_extract": race_us, "frames": race.T,
+                      "reps": RACE_REPS, "launches": k5_launches,
+                      "seconds": race_s,
+                      "config": "200 windows (36, 128) a frame from "
+                                "(560, 896), B = 1 and 8, prep included"}})
+    kernels.append(
+        {"name": "extract64", "route": "cuda",
+         "source": "orcvio_tpu_torch/csrc/extract64.cu",
+         "replaces": "scripts/race_extract.py:86",
+         "launches": k5_launches,
+         "max_abs_err": 0.0 if k5_exact else None,
+         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+         "bound_by": k5_by, "library_ms": k5_lib_ms,
+         "shape": f"({B5},{N5},{race.WD},{race.LANES}) from "
+                  f"{tuple(imgp.shape)}",
+         "bytes": k5_bytes, "call_ms": k5_call_ms,
+         "check": "bit-exact at B=1/8 N=200, N=13, N=0, edge origins"})
+
     emit({"kernels": kernels})
     emit({"profile": {"tracker": tracker_profile, "e2e": e2e_profile}})
 

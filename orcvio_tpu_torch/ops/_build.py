@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` into ``_build/lib<name>-<hash>.so``, keyed on a hash of its
-source and flags, so an edited source builds anew. Nothing is compiled when
-a module is imported; ``build()`` starts one ``nvcc`` per source, all at
-once. The C entry points return ``cudaGetLastError()`` after their launch.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew. Nothing is compiled when a module is
+imported; ``build()`` starts one ``nvcc`` per source, all at once. The C
+entry points return ``cudaGetLastError()`` after their launch.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("window_gather", "lk_level", "cov_update")
+SOURCES = ("window_gather", "lk_level", "cov_update", "lk_iterate",
+           "extract64")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -45,7 +47,10 @@ def _nvcc() -> str:
 
 def _target(source: str) -> tuple[Path, Path]:
     src = CSRC / f"{source}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{source}-{key.hexdigest()[:16]}.so"
 
 

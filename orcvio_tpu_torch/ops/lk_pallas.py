@@ -1,8 +1,9 @@
-"""Kernel K2: one pyramid level of Lucas-Kanade per feature, fused.
+"""Kernels K2 and K3: Lucas-Kanade per feature, one pyramid level a launch.
 
-Replaces ``orcvio_tpu/ops/lk_pallas.py:lk_level_fused`` (``_lk_level_kernel``).
-Per feature: a bilinear (P+2)x(P+2) template patch of win0 at aux[:, 0:2],
-central differences inside it (t, tgx, tgy for the P x P taps), the
+K2 replaces ``orcvio_tpu/ops/lk_pallas.py:lk_level_fused``
+(``_lk_level_kernel``), the main path's fused level. Per feature: a
+bilinear (P+2)x(P+2) template patch of win0 at aux[:, 0:2], central
+differences inside it (t, tgx, tgy for the P x P taps), the
 Hessian a11/a12/a22 and its determinant; then Gauss-Newton steps over win1
 from aux[:, 10:12], clamped to [aux[:, 4:6], aux[:, 6:8]], for at most
 `iters` steps, stopping once the step norm is at most `eps`; then the mean
@@ -23,6 +24,13 @@ feature, the template in shared memory, warp-shuffle reductions, and its
 time the slowest feature's chain of dependent loads and reductions. The
 window tensors themselves are K1's output: fusing K1 into K2 removes them
 and a launch per level.
+
+K3 replaces ``lk_iterate_fused`` (``_lk_kernel``), the iterate-only kernel
+behind ``frontend/klt.py:_lk_iterate_pallas``: exactly `iters` steps (no
+eps stop) over win from a template t, tgx, tgy computed outside and the
+Hessian in aux, then the residual. On the card ``csrc/lk_iterate.cu``, K2's
+design without the template stage (the two share ``csrc/lk_common.cuh``);
+bound and latency as K2's iterations.
 """
 from __future__ import annotations
 
@@ -32,8 +40,10 @@ import torch
 
 from . import _build
 
-# aux layout per feature (window-local coordinates):
+# aux layout per feature (window-local coordinates), K2:
 # [p0_x p0_y . . lo_x lo_y hi_x hi_y . . p1_x p1_y . . . .]
+# K3 (the template is given, so columns 0-3 hold its Hessian instead):
+# [a11 a12 a22 det_safe lo_x lo_y hi_x hi_y . . p_x p_y . . . .]
 AUX_W = 16
 MAX_PATCH = 31  # largest patch the kernel's shared arrays hold
 
@@ -102,24 +112,36 @@ def lk_level_fused_plain(win0, win1, aux, iters: int, patch: int,
     return torch.stack([lx, ly, res, dn, det, steps, z, z], dim=1)
 
 
-def _check_cuda(win0, win1, aux, patch):
-    for name, t in (("win0", win0), ("win1", win1), ("aux", aux)):
+def _check_common(what, win, named, aux, patch, margin):
+    """What both LK kernels need: float32 tensors, contiguous on win's
+    device, an (N, AUX_W) aux, an odd patch the shared arrays hold, and
+    windows (N, R, L) at least patch + margin each way."""
+    for name, t in named:
         if t.dtype != torch.float32:
-            raise TypeError(f"lk level: {name} must be float32, got {t.dtype}")
-        if t.device != win1.device or not t.is_contiguous():
-            raise ValueError(f"lk level: {name} must be contiguous on "
-                             f"{win1.device}")
-    if win1.dim() != 3 or win0.shape != win1.shape:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.device != win.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on "
+                             f"{win.device}")
+    if win.dim() != 3:
+        raise ValueError(f"{what}: windows {tuple(win.shape)} must be "
+                         "(N, R, L)")
+    N, R, L = win.shape
+    if aux.shape != (N, AUX_W):
+        raise ValueError(f"{what}: aux must be ({N}, {AUX_W})")
+    if not 1 <= patch <= MAX_PATCH or patch % 2 == 0:
+        raise ValueError(f"{what}: patch must be odd and <= {MAX_PATCH}")
+    if R < patch + margin or L < patch + margin:
+        raise ValueError(f"{what}: windows ({R}, {L}) too small for "
+                         f"patch {patch}")
+
+
+def _check_cuda(win0, win1, aux, patch):
+    _check_common("lk level", win1,
+                  (("win0", win0), ("win1", win1), ("aux", aux)), aux, patch,
+                  4)
+    if win0.shape != win1.shape:
         raise ValueError(f"lk level: windows {tuple(win0.shape)} and "
                          f"{tuple(win1.shape)} must be one (N, R, L) shape")
-    N, R, L = win1.shape
-    if aux.shape != (N, AUX_W):
-        raise ValueError(f"lk level: aux must be ({N}, {AUX_W})")
-    if not 1 <= patch <= MAX_PATCH or patch % 2 == 0:
-        raise ValueError(f"lk level: patch must be odd and <= {MAX_PATCH}")
-    if R < patch + 4 or L < patch + 4:
-        raise ValueError(f"lk level: windows ({R}, {L}) too small for "
-                         f"patch {patch}")
 
 
 def lk_level_fused(win0, win1, aux, iters: int, patch: int,
@@ -155,3 +177,73 @@ _build.declare("lk_level", "lk_level", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def lk_iterate_fused_plain(win, t, tgx, tgy, aux, iters: int, patch: int):
+    """Plain PyTorch version of K3, vectorised over features: the fixed-count
+    loop of the TPU kernel through the port's one sampler."""
+    P = patch
+    r = (P - 1) // 2
+    col = lambda j: aux[:, j]  # noqa: E731
+    a11, a12, a22, det_safe = col(0), col(1), col(2), col(3)
+    lo_x, lo_y, hi_x, hi_y = col(4), col(5), col(6), col(7)
+    lx = torch.clamp(col(10), lo_x, hi_x)
+    ly = torch.clamp(col(11), lo_y, hi_y)
+    dn = torch.full_like(lx, float("inf"))
+    for _ in range(iters):
+        err = resample(win, lx - r, ly - r, P) - t
+        b1 = torch.sum(tgx * err, dim=(1, 2))
+        b2 = torch.sum(tgy * err, dim=(1, 2))
+        dx = (a22 * b1 - a12 * b2) / det_safe
+        dy = (a11 * b2 - a12 * b1) / det_safe
+        lx = torch.clamp(lx - dx, lo_x, hi_x)
+        ly = torch.clamp(ly - dy, lo_y, hi_y)
+        dn = torch.sqrt(dx * dx + dy * dy)
+    cur = resample(win, lx - r, ly - r, P)
+    res = torch.sum(torch.abs(cur - t), dim=(1, 2)) / (P * P)
+    z = torch.zeros_like(lx)
+    return torch.stack([lx, ly, res, dn, z, z, z, z], dim=1)
+
+
+def _check_iterate_cuda(win, t, tgx, tgy, aux, patch):
+    _check_common("lk iterate", win,
+                  (("win", win), ("t", t), ("tgx", tgx), ("tgy", tgy),
+                   ("aux", aux)), aux, patch, 2)
+    for name, x in (("t", t), ("tgx", tgx), ("tgy", tgy)):
+        if x.shape != (win.shape[0], patch, patch):
+            raise ValueError(f"lk iterate: {name} must be ({win.shape[0]}, "
+                             f"{patch}, {patch}), got {tuple(x.shape)}")
+
+
+def lk_iterate_fused(win, t, tgx, tgy, aux, iters: int, patch: int):
+    """`iters` LK steps for all features over win (N, R, L) from the template
+    t, tgx, tgy (N, P, P) and aux (N, AUX_W) in K3's layout. Returns (N, 8):
+    [lx, ly, mean |I - T|, last step norm, 0, 0, 0, 0], (lx, ly) in window
+    coordinates. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if win.device.type == "cpu":
+        return lk_iterate_fused_plain(win, t, tgx, tgy, aux, iters, patch)
+    if win.device.type != "cuda":
+        raise ValueError(f"lk iterate: unsupported device {win.device}")
+    _check_iterate_cuda(win, t, tgx, tgy, aux, patch)
+    N, R, L = win.shape
+    out = torch.empty((N, 8), dtype=win.dtype, device=win.device)
+    if N == 0:
+        return out
+    lib = _build.library("lk_iterate")
+    rc = lib.lk_iterate(
+        win.data_ptr(), t.data_ptr(), tgx.data_ptr(), tgy.data_ptr(),
+        aux.data_ptr(), out.data_ptr(), N, R, L, patch, iters,
+        win.device.index, torch.cuda.current_stream(win.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"lk iterate: CUDA error {rc} at launch")
+    lk_iterate_fused.launches += 1
+    return out
+
+
+lk_iterate_fused.launches = 0
+
+_build.declare("lk_iterate", "lk_iterate", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

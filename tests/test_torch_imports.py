@@ -6,7 +6,7 @@
 * Entry points without device= run on CUDA, and raise where there is none.
 * Filter flags the port does not run yet raise NotImplementedError.
 * Kernel wrappers given CPU tensors take the plain versions: their launch
-  counters stay at 0.
+  counters stay at 0 (K1 to K5).
 """
 import ast
 import pkgutil
@@ -26,7 +26,9 @@ from orcvio_tpu_torch.filter.state import FilterState
 from orcvio_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
 from orcvio_tpu_torch.ops.cov_update import cov_update
 from orcvio_tpu_torch.ops.dma_gather import dma_gather_tiles
-from orcvio_tpu_torch.ops.lk_pallas import AUX_W, lk_level_fused
+from orcvio_tpu_torch.ops.lk_pallas import (AUX_W, lk_iterate_fused,
+                                            lk_level_fused)
+from orcvio_tpu_torch.scripts.race_extract import extract_pallas
 from orcvio_tpu_torch.vio import VioState
 
 torch.set_num_threads(1)
@@ -58,6 +60,7 @@ def test_port_import_leaves_jax_unloaded():
     names = [m.name for m in pkgutil.walk_packages(
         orcvio_tpu_torch.__path__, "orcvio_tpu_torch.")]
     assert "orcvio_tpu_torch.frontend.tracker" in names
+    assert "orcvio_tpu_torch.scripts.race_extract" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -112,6 +115,8 @@ def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
     monkeypatch.setattr(dma_gather_tiles, "launches", 0)
     monkeypatch.setattr(lk_level_fused, "launches", 0)
     monkeypatch.setattr(cov_update, "launches", 0)
+    monkeypatch.setattr(lk_iterate_fused, "launches", 0)
+    monkeypatch.setattr(extract_pallas, "launches", 0)
     imgs = torch.rand(1, 64, 256)
     idx = torch.zeros(3, dtype=torch.int32)
     win = dma_gather_tiles(imgs, idx, idx, idx, 6, 2)
@@ -120,6 +125,13 @@ def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
     aux[:, 4:6], aux[:, 6:8] = 10.0, 30.0
     out = lk_level_fused(win, win, aux, 3, 15)
     assert win.shape == (3, 48, 256) and out.shape == (3, 8)
+    tmpl = torch.rand(3, 15, 15)
+    aux[:, 0] = aux[:, 2] = aux[:, 3] = 1.0
+    out = lk_iterate_fused(win, tmpl, tmpl, tmpl, aux, 3, 15)
+    assert out.shape == (3, 8)
+    oy = torch.zeros(2, 3, dtype=torch.int32)
+    w, off = extract_pallas(torch.rand(2, 64, 256), oy, oy + 70)
+    assert w.shape == (2, 3, 36, 128) and bool((off == 6).all())
     P = torch.eye(4, dtype=torch.float64)
     cov = cov_update(P, torch.ones(4, 2, dtype=torch.float64),
                      torch.ones(2, 4, dtype=torch.float64))
@@ -127,3 +139,5 @@ def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
     assert dma_gather_tiles.launches == 0
     assert lk_level_fused.launches == 0
     assert cov_update.launches == 0
+    assert lk_iterate_fused.launches == 0
+    assert extract_pallas.launches == 0

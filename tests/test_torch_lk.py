@@ -31,9 +31,9 @@ PATCH = 15
 ITERS = 10
 
 
-def _make_case(n, shift_scale=3.0, seed=0):
+def _make_case(n, shift_scale=3.0, seed=0, lanes=LANES):
     """Smooth windows + per-feature true shifts, the shapes gather_level
-    produces (tests/test_lk_pallas.py's case): win (N, ROWS, LANES) float32
+    produces (tests/test_lk_pallas.py's case): win (N, ROWS, lanes) float32
     with the logical search window starting at `start` inside it."""
     rng = np.random.default_rng(seed)
     H, W = 256, 384
@@ -45,11 +45,11 @@ def _make_case(n, shift_scale=3.0, seed=0):
     cx = rng.uniform(80, W - 80, size=n).astype(np.float32)
     cy = rng.uniform(80, H - 80, size=n).astype(np.float32)
     t0 = -(SEARCH_WD // 2)
-    win0 = np.zeros((n, ROWS, LANES), np.float32)
-    win1 = np.zeros((n, ROWS, LANES), np.float32)
+    win0 = np.zeros((n, ROWS, lanes), np.float32)
+    win1 = np.zeros((n, ROWS, lanes), np.float32)
     origin = np.zeros((n, 2), np.float32)
     start = np.zeros((n, 2), np.float32)
-    yy, xx = np.mgrid[0:ROWS, 0:LANES]
+    yy, xx = np.mgrid[0:ROWS, 0:lanes]
     for i in range(n):
         ox = np.floor(cx[i]) + t0 - 8  # origin 8 px left of the logical start
         oy = np.floor(cy[i]) + t0
