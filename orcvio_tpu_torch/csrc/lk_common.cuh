@@ -1,5 +1,7 @@
 // Device functions shared by the LK kernels K2 (lk_level.cu) and K3
-// (lk_iterate.cu): block reductions and the exact float32 bilinear tap.
+// (lk_iterate.cu): the warp butterfly and corner() (both), block
+// reductions and the exact float32 bilinear tap from global memory (K3;
+// K2 taps its shared-memory tiles with the same arithmetic).
 // Each kernel is its own shared library, so each has its own copy;
 // ops/_build.py hashes this header with every source, so an edit rebuilds
 // both.

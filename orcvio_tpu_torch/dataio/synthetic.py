@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
@@ -132,10 +134,12 @@ def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0.0).T
 
 
-def smooth_texture(H, W, seed=0, octaves=5, lo=40.0, hi=220.0, device="cpu"):
+def smooth_texture(H, W, seed=0, octaves=5, lo=40.0, hi=220.0, device=None):
     """Band-limited random texture with structure at several scales, float32
-    (H, W) on `device`: octaves of seeded normal noise, each upsampled
-    linearly to (H, W) (in float64) and weighted 2**octave."""
+    (H, W) on `device` (the card unless given): octaves of seeded normal
+    noise, each upsampled linearly to (H, W) (in float64) and weighted
+    2**octave."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     img = torch.zeros((H, W), dtype=torch.float64, device=device)
     for o in range(octaves):

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import no_tf32
+from .. import no_tf32, resolve_device
 from ..config.core import FilterConfig, require_supported
 from ..math import linalg
 from . import features as feat
@@ -60,9 +60,10 @@ class FrameOutput(NamedTuple):
     zupt: torch.Tensor  # ZUPT fired this frame
 
 
-def build_chi2_table(cfg: FilterConfig, dtype=torch.float32, device="cpu"):
+def build_chi2_table(cfg: FilterConfig, dtype=torch.float32, device=None):
+    """The chi-square gate's table, on `device` (the card unless given)."""
     return torch.as_tensor(linalg.chi_squared_table(cfg.chi2_confidence),
-                           dtype=dtype).to(device)
+                           dtype=dtype).to(resolve_device(device))
 
 
 def filter_step(cfg: FilterConfig, state: FilterState, frame: FrameInput,

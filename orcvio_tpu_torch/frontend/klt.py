@@ -4,12 +4,16 @@ Counterpart of ``orcvio_tpu/frontend/klt.py`` (reference:
 cv::calcOpticalFlowPyrLK, image_processor.cpp:568,628, forward + reverse
 with a 1 px consistency gate).
 
-Per level, each feature's window is cut from the tile-aligned level image
-by kernel K1 (``ops/dma_gather.py``) at the full (48, 256) extent the TPU
-path keeps, and the template and all LK iterations run in kernel K2
-(``ops/lk_pallas.py``). The backward consistency pass reuses the level-0
-windows of the forward pass. ``forward_backward_track`` and ``pyr_track``
-take raw level tensors or prepared ``AlignedImage`` levels.
+Per level, each feature has a (48, 256) window of the tile-aligned level
+image, the extent the TPU path keeps, and the template and all LK
+iterations run in kernel K2 (``ops/lk_pallas.py``). On the card K2 reads
+the windows in place in the padded level (``lk_level_src``, the level
+route): ``gather_level(..., cut=False)`` gives their offsets and no window
+is written. On the CPU K1 (``ops/dma_gather.py``) cuts them and K2's plain
+version runs on them, as the JAX package's CPU path does; both routes read
+the same pixels. The backward consistency pass reuses the level-0 windows
+(or offsets) of the forward pass. ``forward_backward_track`` and
+``pyr_track`` take raw level tensors or prepared ``AlignedImage`` levels.
 
 LK stops per feature once its step norm is at most ``KLT_EPS`` (as
 cv::TermCriteria does) or after ``iters`` steps. ``KLT_EPS = 0`` gives the
@@ -32,8 +36,9 @@ import torch
 
 from ..ops.lk_pallas import (AUX_W, lk_iterate_fused,
                              lk_iterate_fused_plain, lk_level_fused,
-                             resample)
-from ..ops.window_gather import AlignedImage, gather_windows, prepare_image
+                             lk_level_src, resample)
+from ..ops.window_gather import (AlignedImage, gather_windows, prepare_image,
+                                 window_offsets, window_origins)
 
 SEARCH_WD = 36       # logical search-window span (patch 15 + 2*9 radius + 2)
 ROWS, LANES = 48, 128  # window rows, and the lane unit (windows are 2 units)
@@ -47,9 +52,11 @@ class KltResult(NamedTuple):
 
 
 class LevelWindows(NamedTuple):
-    win: torch.Tensor     # (N, ROWS, 2*LANES) pixels
+    win: torch.Tensor | None  # (N, ROWS, 2*LANES) pixels; None if not cut
     origin: torch.Tensor  # (N, 2) xy of win[:, 0, 0] in image coords
     start: torch.Tensor   # (N, 2) xy of the logical search window start
+    level: torch.Tensor | None = None   # (Hp, Wp) padded level, if not cut
+    offset: torch.Tensor | None = None  # (N,) int64 window offsets in level
 
 
 def prepare_pyramid(pyr):
@@ -57,15 +64,22 @@ def prepare_pyramid(pyr):
     return tuple(prepare_image(img[None], margin=MARGIN) for img in pyr)
 
 
-def gather_level(ai: AlignedImage, centers) -> LevelWindows:
-    """The (ROWS, 2*LANES) window around floor(centers) - SEARCH_WD//2."""
+def gather_level(ai: AlignedImage, centers, cut: bool = True) -> LevelWindows:
+    """The (ROWS, 2*LANES) window around floor(centers) - SEARCH_WD//2: cut
+    by K1, or with cut=False located only (the level and each window's
+    offset in it, for K2's level route)."""
     t0 = -(SEARCH_WD // 2)
-    win, origin = gather_windows(ai, centers, t0, SEARCH_WD, ROWS, 2 * LANES)
     H, W = ai.shape
     cf = torch.floor(centers)
     start = torch.stack([torch.clamp(cf[:, 0], 0, W - 1) + t0,
                          torch.clamp(cf[:, 1], 0, H - 1) + t0], dim=1)
-    return LevelWindows(win=win[0], origin=origin, start=start)
+    if cut:
+        win, origin = gather_windows(ai, centers, t0, SEARCH_WD, ROWS,
+                                     2 * LANES)
+        return LevelWindows(win=win[0], origin=origin, start=start)
+    r0, c0, origin = window_origins(ai, centers, t0, ROWS, 2 * LANES)
+    return LevelWindows(win=None, origin=origin, start=start,
+                        level=ai.padded[0], offset=window_offsets(ai, r0, c0))
 
 
 def _search_bounds(lw: LevelWindows, patch: int):
@@ -91,11 +105,16 @@ def _level_aux(lw0: LevelWindows, lw1: LevelWindows, xy0, p_init,
 
 def _lk_level(lw0: LevelWindows, lw1: LevelWindows, xy0, p_init, patch: int,
               iters: int):
-    """One level: template from lw0 at xy0, LK over lw1 from p_init (K2).
+    """One level: template from lw0 at xy0, LK over lw1 from p_init (K2,
+    over the cut windows or, where they were not cut, over the levels).
 
     Returns (p, residual, conv) with p in image coordinates."""
     aux, lo, hi = _level_aux(lw0, lw1, xy0, p_init, patch)
-    out = lk_level_fused(lw0.win, lw1.win, aux, iters, patch, KLT_EPS)
+    if lw1.win is None:
+        out = lk_level_src(lw0.level, lw0.offset, lw1.level, lw1.offset, aux,
+                           iters, patch, KLT_EPS, ROWS, 2 * LANES)
+    else:
+        out = lk_level_fused(lw0.win, lw1.win, aux, iters, patch, KLT_EPS)
     return _level_result(out, lw1, lo, hi)
 
 
@@ -107,7 +126,9 @@ def _level_result(out, lw1: LevelWindows, lo, hi):
 
 def _converged(lxy, step, det, lo, hi):
     """A well-conditioned template, a last step under 1 px, and a final
-    position strictly inside the search bounds."""
+    position strictly inside the search bounds. A NaN row (K2's mark of a
+    feature whose bounds its tile cannot hold) fails every comparison, so
+    it is never converged."""
     interior = ((lxy > lo + 1e-3) & (lxy < hi - 1e-3)).all(dim=1)
     return (det > 1e-6) & (step < 1.0) & interior
 
@@ -194,11 +215,13 @@ def track_level(img0, img1, xy0, xy1_init, patch: int, iters: int,
 def _pyr_track_prepared(ais0, ais1, xy0, xy1_guess, patch, iters,
                         want_bwd: bool, max_residual: float = 25.0):
     """Coarse-to-fine forward LK (K2 at each level), then, with want_bwd,
-    the level-0 backward pass.
+    the level-0 backward pass. On the card K2 reads the levels in place;
+    on the CPU the windows are cut first.
 
     Returns the KltResult of the forward track, with want_bwd also the
     forward-backward distance."""
     levels = len(ais0)
+    cut = not ais0[0].padded.is_cuda
     scale = 2.0 ** (levels - 1)
     p1 = xy1_guess / scale
     lw0_l0 = lw1_l0 = None
@@ -206,8 +229,8 @@ def _pyr_track_prepared(ais0, ais1, xy0, xy1_guess, patch, iters,
         p0_lv = xy0 / 2.0 ** lv
         if lv != levels - 1:
             p1 = p1 * 2.0
-        lw0 = gather_level(ais0[lv], p0_lv)
-        lw1 = gather_level(ais1[lv], p1)
+        lw0 = gather_level(ais0[lv], p0_lv, cut)
+        lw1 = gather_level(ais1[lv], p1, cut)
         p1, res, conv = _lk_level(lw0, lw1, p0_lv, p1, patch, iters)
         if lv == 0:
             lw0_l0, lw1_l0 = lw0, lw1
@@ -217,9 +240,10 @@ def _pyr_track_prepared(ais0, ais1, xy0, xy1_guess, patch, iters,
     fwd_ok = conv & inb & (res < max_residual)
     if not want_bwd:
         return KltResult(xy=p1, ok=fwd_ok)
-    # backward pass at level 0, reusing the forward windows: template from
-    # the img1 window at the forward result, iterate over the img0 window
-    # starting at xy0 (flow magnitude <= search radius by construction)
+    # backward pass at level 0, reusing the forward windows (or their
+    # offsets): template from the img1 window at the forward result,
+    # iterate over the img0 window starting at xy0 (flow magnitude <=
+    # search radius by construction)
     q, _res_b, conv_b = _lk_level(lw1_l0, lw0_l0, p1, xy0, patch, iters)
     fb = torch.linalg.norm(q - xy0, dim=1)
     return KltResult(xy=p1, ok=fwd_ok & conv_b), fb

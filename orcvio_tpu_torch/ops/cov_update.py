@@ -7,11 +7,17 @@ computes the covariance step of every EKF update through it: the stacked
 hybrid update, the ZUPT update and the last-chance update.
 
 On the card this is ``csrc/cov_update.cu`` (float32 on the main path, and a
-float64 instance); on the CPU the plain version below. HP = H P stays a
-torch.matmul, as it stays outside the TPU kernel. Bound on the card:
-operations, 4 D^2 q FLOP on (2 D^2 + 2 D q) elements. The kernel runs FP32
-(or FP64) FMAs, one 16x16 output tile per block, and is exactly symmetric
-(see the source's note).
+float64 instance); on the CPU the plain version below. HP = H P is an
+input: ``apply_ekf_update`` forms it for S and K before this step, so the
+kernel does the K HP products and the symmetrization. Bound on the card:
+operations, 2 D^2 q FLOP on (2 D^2 + 2 D q) elements with HP given. The
+kernel walks the upper triangle of 32x32 tile pairs, runs the products on
+the FP64 tensor cores (DMMA; f32 inputs widened exactly, one rounding at
+the end), splits q over a cluster of up to 4 CTAs reduced through
+distributed shared memory, and stores one value at (i, j) and (j, i), so
+the output is exactly symmetric; where q <= 32 (the ZUPT update) a small
+kernel of f64 sums over every 16x16 tile takes its place (see the
+source's note).
 """
 from __future__ import annotations
 

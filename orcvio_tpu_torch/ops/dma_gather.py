@@ -11,8 +11,9 @@ image tiles the windows cover, once each (neighbouring windows share
 tiles), and write N*rows*lanes*4 bytes. The kernel copies with 16-byte
 loads and stores, one block per (window, 8-row group), neighbouring threads
 on neighbouring addresses; a tile shared by several windows is read once per
-window, from L2 after the first. Fusing it into K2, so that windows never
-reach device memory, is later work.
+window, from L2 after the first. On the main path K1 cuts only ORB's
+windows: K2 reads the KLT windows in place in the pyramid levels
+(``ops/lk_pallas.py:lk_level_src``), so they never reach device memory.
 """
 from __future__ import annotations
 

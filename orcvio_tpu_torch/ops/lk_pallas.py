@@ -19,11 +19,21 @@ is given: per feature a (P+3)^2 block of win0 and, of win1, the union of
 the (P+1)^2 blocks at the positions it visits (at most 37x37 at P = 15),
 1.3 KB to 6.8 KB against the windows' 98 KB, and some 14 operations per tap
 per step on 225 taps. Both come to well under a microsecond for 200
-features, so the kernel is latency-bound: one block of 256 threads per
-feature, the template in shared memory, warp-shuffle reductions, and its
-time the slowest feature's chain of dependent loads and reductions. The
-window tensors themselves are K1's output: fusing K1 into K2 removes them
-and a launch per level.
+features, so the kernel is latency-bound: one warp per feature (4 a
+block), shuffle reductions and no block barrier, and every tap the
+feature can reach staged once into shared memory, so that its steps read
+nothing else.
+
+The kernel reads each image as (base, row stride, per-feature offset), so
+it has two entry points: ``lk_level_fused`` over window tensors (the JAX
+package's interface), and ``lk_level_src`` over the padded pyramid levels
+themselves, at the offsets of the windows K1 would cut
+(``ops/window_gather.py:window_offsets``). Both read the same pixels and
+give the same bits; the level route writes no windows and launches no K1.
+The staged tile of the second image is SEARCH_TILE pixels square: on the
+card a feature whose search bounds [lo, hi] need more gets a NaN row
+(a search window S px wide needs S + 1; the tracker's is 36), where the
+plain version computes one.
 
 K3 replaces ``lk_iterate_fused`` (``_lk_kernel``), the iterate-only kernel
 behind ``frontend/klt.py:_lk_iterate_pallas``: exactly `iters` steps (no
@@ -46,6 +56,7 @@ from . import _build
 # [a11 a12 a22 det_safe lo_x lo_y hi_x hi_y . . p_x p_y . . . .]
 AUX_W = 16
 MAX_PATCH = 31  # largest patch the kernel's shared arrays hold
+SEARCH_TILE = 40  # edge of K2's staged block of the second image
 
 
 def resample(win, lx, ly, P: int):
@@ -150,7 +161,11 @@ def lk_level_fused(win0, win1, aux, iters: int, patch: int,
     [lx, ly, mean |I - T|, last step norm, det, steps taken, 0, 0], with
     (lx, ly) in window-local coordinates of win1 (the TPU kernel's row, with
     the step count where it writes 0). CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel or raise. On the card a feature whose
+    search bounds aux[4:8] reach more than SEARCH_TILE pixels of win1 each
+    way (a search window over SEARCH_TILE - 1 px wide) gets NaN in columns
+    0-4, as the kernel stages a SEARCH_TILE-pixel block per feature;
+    frontend/klt.py:_converged reads such a row as not converged."""
     if win1.device.type == "cpu":
         return lk_level_fused_plain(win0, win1, aux, iters, patch, eps)
     if win1.device.type != "cuda":
@@ -177,6 +192,89 @@ _build.declare("lk_level", "lk_level", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def cut_windows(img, off, rows: int, lanes: int):
+    """(N, rows, lanes) windows of the 2-D img, window n starting at element
+    off[n], rows img.shape[-1] elements apart: what lk_level_src reads."""
+    stride = img.shape[-1]
+    r = torch.arange(rows, device=img.device)[:, None] * stride
+    c = torch.arange(lanes, device=img.device)
+    return img.reshape(-1)[off[:, None, None] + r + c]
+
+
+def lk_level_src_plain(img0, off0, img1, off1, aux, iters: int, patch: int,
+                       eps: float = 0.01, rows: int = 48, lanes: int = 256):
+    """Plain PyTorch version of the level route: the windows cut, then K2's
+    plain version."""
+    return lk_level_fused_plain(cut_windows(img0, off0, rows, lanes),
+                                cut_windows(img1, off1, rows, lanes), aux,
+                                iters, patch, eps)
+
+
+def _check_src_cuda(img0, off0, img1, off1, aux, patch, rows, lanes):
+    what = "lk level (levels)"
+    for name, t in (("img0", img0), ("img1", img1), ("aux", aux)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+    for name, t in (("img0", img0), ("off0", off0), ("img1", img1),
+                    ("off1", off1), ("aux", aux)):
+        if t.device != img1.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on "
+                             f"{img1.device}")
+    N = aux.shape[0]
+    for name, off in (("off0", off0), ("off1", off1)):
+        if off.dtype != torch.int64 or tuple(off.shape) != (N,):
+            raise ValueError(f"{what}: {name} must be ({N},) int64")
+    if aux.shape != (N, AUX_W):
+        raise ValueError(f"{what}: aux must be ({N}, {AUX_W})")
+    if not 1 <= patch <= MAX_PATCH or patch % 2 == 0:
+        raise ValueError(f"{what}: patch must be odd and <= {MAX_PATCH}")
+    for name, img in (("img0", img0), ("img1", img1)):
+        if img.dim() != 2 or img.shape[0] < rows or img.shape[1] < lanes:
+            raise ValueError(f"{what}: {name} {tuple(img.shape)} must be a "
+                             f"2-D image holding ({rows}, {lanes}) windows")
+    if rows < patch + 4 or lanes < patch + 4:
+        raise ValueError(f"{what}: windows ({rows}, {lanes}) too small for "
+                         f"patch {patch}")
+
+
+def lk_level_src(img0, off0, img1, off1, aux, iters: int, patch: int,
+                 eps: float = 0.01, rows: int = 48, lanes: int = 256):
+    """K2 reading the images in place: the (rows, lanes) window of feature
+    n starts at element off_k[n] of the 2-D padded level img_k (rows
+    img_k.shape[-1] apart), as ops/window_gather.py:window_offsets gives
+    it; aux as lk_level_fused's. Returns lk_level_fused's (N, 8) rows on
+    those windows, NaN rows included. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if img1.device.type == "cpu":
+        return lk_level_src_plain(img0, off0, img1, off1, aux, iters, patch,
+                                  eps, rows, lanes)
+    if img1.device.type != "cuda":
+        raise ValueError(f"lk level: unsupported device {img1.device}")
+    _check_src_cuda(img0, off0, img1, off1, aux, patch, rows, lanes)
+    N = aux.shape[0]
+    out = torch.empty((N, 8), dtype=img1.dtype, device=img1.device)
+    if N == 0:
+        return out
+    lib = _build.library("lk_level")
+    rc = lib.lk_level_src(
+        img0.data_ptr(), off0.data_ptr(), img0.shape[-1], img0.numel(),
+        img1.data_ptr(), off1.data_ptr(), img1.shape[-1], img1.numel(),
+        aux.data_ptr(), out.data_ptr(), N, rows, lanes, patch, iters, eps,
+        img1.device.index, torch.cuda.current_stream(img1.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"lk level: CUDA error {rc} at launch")
+    lk_level_fused.launches += 1
+    return out
+
+
+_build.declare("lk_level", "lk_level_src", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p])
 
 
 def lk_iterate_fused_plain(win, t, tgx, tgy, aux, iters: int, patch: int):

@@ -4,7 +4,9 @@ Counterpart of ``orcvio_tpu/ops/window_gather.py``. Windows start on
 (8, 128) tile boundaries, as the JAX package's "dma" path gathers them, so
 windows and origins match the JAX package one for one. The copy itself is
 kernel K1 (``ops/dma_gather.py``): CUDA on the card, a plain slice on the
-CPU. The one-hot matmul gathers and ``crop_lanes`` exist only for the TPU's
+CPU. ``window_offsets`` gives each window's element offset in the padded
+image instead, for K2's level route, which reads the windows in place.
+The one-hot matmul gathers and ``crop_lanes`` exist only for the TPU's
 matrix unit and are not ported.
 
 Reference contract: the per-feature window reads of
@@ -67,6 +69,16 @@ def window_origins(ai: AlignedImage, centers, t0: int, rows: int,
     origin = torch.stack([(c0 * BL - ai.pad).to(centers.dtype),
                           (r0 * BR - ai.pad).to(centers.dtype)], dim=1)
     return r0, c0, origin
+
+
+def window_offsets(ai: AlignedImage, r0, c0):
+    """(N,) int64 element offset in ai.padded[c] of each window's (0, 0)
+    pixel, for the tile origins window_origins gives; rows lie
+    ai.padded.shape[-1] elements apart. Windows read in place at these
+    offsets are exactly the windows gather_windows cuts."""
+    Wp = ai.padded.shape[-1]
+    # int32 arithmetic (offsets stay far below 2**31), widened once
+    return torch.add(c0 * BL, r0, alpha=BR * Wp).long()
 
 
 def gather_windows(ai: AlignedImage, centers, t0: int, wd: int,

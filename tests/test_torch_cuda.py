@@ -7,9 +7,21 @@ hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-K4 (``csrc/cov_update.cu``): float32 within the float32 rounding bound of
-two length-q sums, scaled to the inputs (1e-4 at these shapes); float64
-to 1e-12. The output is exactly symmetric, whatever the shape.
+K4 (``csrc/cov_update.cu``): within the rounding bound of two length-q
+sums (``k4_tolerance``, entry by entry, the same as chip_smoke.py's), in
+float32 and float64, at ragged and main-path shapes, on both sides of
+q = 32, where the small kernel hands over to the tiled one; exactly
+symmetric, whatever the shape; D = 0 gives an empty output.
+
+K1 (``csrc/window_gather.cu``): bit-exact against the plain version.
+
+K2 (``csrc/lk_level.cu``): positions within 1e-3 px of the plain version
+at eps = 0 and 2e-2 px at eps = 0.01 (both exact float32 taps; the sums
+differ in order, which may move a stop by one step), convergence agreeing
+on >= 99 %; the level route (``lk_level_src``, reading the padded levels
+in place) bit-identical to the window route; on either route a feature
+whose search bounds exceed the kernel's tile gets a NaN row, the others
+their own.
 
 K3 (``csrc/lk_iterate.cu``): positions within 1e-3 px of the plain
 version (both exact float32 taps; the sums differ in order), columns 4-7
@@ -21,9 +33,15 @@ import torch
 
 from orcvio_tpu_torch.frontend import klt
 from orcvio_tpu_torch.ops.cov_update import cov_update, cov_update_plain
-from orcvio_tpu_torch.ops.lk_pallas import (lk_iterate_fused,
-                                            lk_iterate_fused_plain)
-from orcvio_tpu_torch.ops.window_gather import prepare_image
+from orcvio_tpu_torch.ops.dma_gather import (dma_gather_tiles,
+                                             dma_gather_tiles_plain)
+from orcvio_tpu_torch.ops.lk_pallas import (SEARCH_TILE, lk_iterate_fused,
+                                            lk_iterate_fused_plain,
+                                            lk_level_fused,
+                                            lk_level_fused_plain,
+                                            lk_level_src)
+from orcvio_tpu_torch.ops.window_gather import (prepare_image,
+                                                window_origins)
 from orcvio_tpu_torch.scripts import race_extract as race
 
 pytestmark = pytest.mark.cuda
@@ -44,18 +62,39 @@ def _inputs(D, q, seed, dtype, device):
         rng.normal(size=(q, D)) * 0.1))
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
-                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize("D,q", [(172, 444), (172, 384), (172, 9), (50, 20),
-                                 (17, 1)])
-def test_cov_update_matches_plain(card, dtype, atol, D, q):
+def k4_tolerance(P, K, HP, out):
+    """Per-element bound on |kernel - plain| for sym(P - K HP): each forms
+    A(r, c) and A(c, r) as length-q sums in its own order, so each is off
+    the exact value by at most gamma_{q+2} (|K| |HP| + |P|) entry by entry
+    (gamma_n = n u / (1 - n u)), plus a rounding of the mean; the two
+    outputs differ by at most twice that."""
+    u = torch.finfo(P.dtype).eps / 2
+    n = K.shape[1] + 2
+    g = n * u / (1 - n * u)
+    M = K.double().abs() @ HP.double().abs() + P.double().abs()
+    return 2 * (g * 0.5 * (M + M.T) + u * out.double().abs())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("q", [1, 9, 32, 33, 384, 444, 1000])
+@pytest.mark.parametrize("D", [17, 50, 172, 300])
+def test_cov_update_matches_plain(card, dtype, D, q):
     P, K, H = _inputs(D, q, D + q, dtype, card)
+    HP = H @ P
     n = cov_update.launches
-    out = cov_update(P, K, H)
+    out = cov_update(P, K, H, HP)
     torch.cuda.synchronize()
     assert cov_update.launches == n + 1
     assert torch.equal(out, out.T)
-    assert float((out - cov_update_plain(P, K, H)).abs().max()) < atol
+    ref = cov_update_plain(P, K, H, HP)
+    err = (out - ref).abs().double()
+    assert bool((err <= k4_tolerance(P, K, HP, ref)).all())
+    assert torch.equal(cov_update(P, K, H), out)
+
+
+def test_cov_update_empty(card):
+    P, K, H = _inputs(0, 5, 0, torch.float32, card)
+    assert tuple(cov_update(P, K, H).shape) == (0, 0)
 
 
 def test_cov_update_rejects_what_it_cannot_take(card):
@@ -66,9 +105,8 @@ def test_cov_update_rejects_what_it_cannot_take(card):
         cov_update(P.half(), K.half(), H.half())
 
 
-def _k3_case(n, device, seed=0):
-    """Windows, template and aux of one LK level on a smooth 240x320 frame
-    and its shift by (1.7, -0.9) px, as track_level builds them."""
+def _frame_pair(device, seed=0):
+    """A smooth 240x320 frame and its shift by (1.7, -0.9) px, float32."""
     rng = np.random.default_rng(seed)
     base = np.kron(rng.normal(size=(31, 41)), np.ones((8, 8)))
     k = np.ones(9) / 9.0
@@ -84,14 +122,118 @@ def _k3_case(n, device, seed=0):
     img1 = ((1 - fy) * ((1 - fx) * img[iy, ix] + fx * img[iy, ix + 1])
             + fy * ((1 - fx) * img[iy + 1, ix] + fx * img[iy + 1, ix + 1]))
     img0 = img[4:244, 4:324]
+    return tuple(torch.as_tensor(x, dtype=torch.float32, device=device)
+                 for x in (img0, img1))
+
+
+def _k3_case(n, device, seed=0):
+    """Windows, template and aux of one LK level on _frame_pair's frames,
+    as track_level builds them."""
+    rng = np.random.default_rng(seed)
+    img0, img1 = _frame_pair(device, seed)
+    rng.normal(size=(31, 41))  # the draws _frame_pair made
     t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
                                   device=device)
     xy = t(rng.uniform([20, 20], [300, 220], size=(n, 2)))
-    lw0 = klt.gather_level(prepare_image(t(img0)[None], klt.MARGIN), xy)
-    lw1 = klt.gather_level(prepare_image(t(img1)[None], klt.MARGIN), xy)
+    lw0 = klt.gather_level(prepare_image(img0[None], klt.MARGIN), xy)
+    lw1 = klt.gather_level(prepare_image(img1[None], klt.MARGIN), xy)
     tmpl = klt._template(lw0, xy, 15)
     aux, _, _ = klt._iterate_aux(lw1, tmpl, xy, 15)
     return lw1.win, tmpl[:3], aux
+
+
+def _k2_case(n, device, seed=0):
+    """Both routes of one LK level on _k3_case's frame pair: the cut
+    windows and the padded levels with the windows' offsets, and aux from
+    a start up to 1 px off the true position."""
+    rng = np.random.default_rng(seed)
+    ai0, ai1 = (prepare_image(im[None], klt.MARGIN)
+                for im in _frame_pair(device, seed))
+    xy = torch.as_tensor(rng.uniform([20, 20], [300, 220], size=(n, 2)),
+                         dtype=torch.float32, device=device)
+    p1 = xy + torch.tensor([1.7, -0.9], device=device) + torch.as_tensor(
+        rng.uniform(-1, 1, size=(n, 2)), dtype=torch.float32, device=device)
+    cut = [klt.gather_level(ai0, xy), klt.gather_level(ai1, p1)]
+    src = [klt.gather_level(ai0, xy, cut=False),
+           klt.gather_level(ai1, p1, cut=False)]
+    aux, lo, hi = klt._level_aux(*cut, xy, p1, 15)
+    return cut, src, aux, lo, hi
+
+
+@pytest.mark.parametrize("eps,tol", [(0.0, 1e-3), (0.01, 2e-2)])
+@pytest.mark.parametrize("n", [200, 13, 0])
+def test_lk_level_matches_plain_and_routes_agree(card, n, eps, tol):
+    (c0, c1), (s0, s1), aux, lo, hi = _k2_case(n, card)
+    launches = lk_level_fused.launches
+    win = lk_level_fused(c0.win, c1.win, aux, 10, 15, eps)
+    lvl = lk_level_src(s0.level, s0.offset, s1.level, s1.offset, aux, 10, 15,
+                       eps)
+    torch.cuda.synchronize()
+    assert lk_level_fused.launches == launches + 2 * (n > 0)
+    assert tuple(win.shape) == tuple(lvl.shape) == (n, 8)
+    assert torch.equal(win, lvl)
+    if n:
+        ref = lk_level_fused_plain(c0.win, c1.win, aux, 10, 15, eps)
+        assert float((win[:, :2] - ref[:, :2]).abs().max()) < tol
+        conv = [klt._converged(o[:, :2], o[:, 3], o[:, 4], lo, hi)
+                for o in (win, ref)]
+        assert float((conv[0] == conv[1]).float().mean()) >= 0.99
+        assert bool((win[:, 6:] == 0).all())
+        # the backward pass: template from image 1 at the result, LK over
+        # image 0, both routes
+        p1 = c1.origin + win[:, :2]
+        xy0 = c0.origin + aux[:, 0:2]
+        baux = klt._level_aux(c1, c0, p1, xy0, 15)[0]
+        bwin = lk_level_fused(c1.win, c0.win, baux, 10, 15, eps)
+        blvl = lk_level_src(s1.level, s1.offset, s0.level, s0.offset, baux,
+                            10, 15, eps)
+        assert torch.equal(bwin, blvl)
+
+
+@pytest.mark.parametrize("lanes", [250, 256])
+def test_lk_level_copies_unaligned_windows(card, lanes):
+    """Windows whose rows are not whole 16-byte multiples are staged pixel
+    by pixel; the result is the same function."""
+    (c0, c1), _, aux, _, _ = _k2_case(40, card, seed=3)
+    w0, w1 = (c.win[:, :, :lanes].contiguous() for c in (c0, c1))
+    out = lk_level_fused(w0, w1, aux, 10, 15, 0.0)
+    ref = lk_level_fused_plain(w0, w1, aux, 10, 15, 0.0)
+    torch.cuda.synchronize()
+    assert float((out[:, :2] - ref[:, :2]).abs().max()) < 1e-3
+    assert torch.equal(out, lk_level_fused(c0.win, c1.win, aux, 10, 15, 0.0))
+
+
+def test_lk_level_refuses_and_flags_what_its_tile_cannot_hold(card):
+    (c0, c1), (s0, s1), aux, _, _ = _k2_case(8, card)
+    args = (s0.level, s0.offset, s1.level, s1.offset, aux, 10, 15)
+    with pytest.raises(TypeError):
+        lk_level_src(s0.level.double(), *args[1:])
+    with pytest.raises(ValueError):
+        lk_level_src(s0.level, s0.offset.int(), *args[2:])
+    wide = aux.clone()
+    wide[:3, 6:8] = wide[:3, 4:6] + SEARCH_TILE  # bounds past the tile
+    out = lk_level_fused(c0.win, c1.win, wide, 10, 15)
+    lvl = lk_level_src(*args[:4], wide, 10, 15)
+    ok = lk_level_fused(c0.win, c1.win, aux, 10, 15)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[:3, :5]).all())
+    assert torch.equal(out[3:], ok[3:])
+    assert torch.equal(lvl[3:], out[3:]) and bool(torch.isnan(lvl[:3, :5]).all())
+
+
+@pytest.mark.parametrize("n", [200, 440, 13, 0])
+def test_window_gather_matches_plain(card, n):
+    ai = prepare_image(_frame_pair(card)[0][None], klt.MARGIN)
+    xy = torch.as_tensor(np.random.default_rng(n).uniform(
+        [-5, -5], [325, 245], size=(n, 2)), dtype=torch.float32, device=card)
+    r0, c0, _ = window_origins(ai, xy, -18, 48, 256)
+    b = torch.zeros_like(r0)
+    launches = dma_gather_tiles.launches
+    out = dma_gather_tiles(ai.padded, r0, c0, b, 6, 2)
+    torch.cuda.synchronize()
+    assert dma_gather_tiles.launches == launches + (n > 0)
+    assert tuple(out.shape) == (n, 48, 256)
+    assert torch.equal(out, dma_gather_tiles_plain(ai.padded, r0, c0, b, 6, 2))
 
 
 @pytest.mark.parametrize("lanes", [256, 128])

@@ -81,7 +81,7 @@ def _gumbels(key, steps):
 def stream():
     sim = psyn.SimConfig(n_frames=T, **SIM)
     tex = psyn.smooth_texture(cs.TEXTURE["size"], cs.TEXTURE["size"],
-                              seed=cs.TEXTURE["seed"])
+                              seed=cs.TEXTURE["seed"], device="cpu")
 
     def render(R, t):
         return psyn.render_plane_view(
@@ -148,7 +148,7 @@ def test_pose_matches(runs, field):
 
 
 def test_smooth_texture_matches_jax():
-    ours = psyn.smooth_texture(256, 320, seed=4).numpy()
+    ours = psyn.smooth_texture(256, 320, seed=4, device="cpu").numpy()
     theirs = np.asarray(jsyn.smooth_texture(256, 320, seed=4))
     assert ours.dtype == theirs.dtype == np.float32
     np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-4)
@@ -162,7 +162,7 @@ def test_render_plane_view_matches_jax(t):
     R, p = psyn.trajectory_pose_np(sim, t)
     R_c2w = (R @ np.asarray(cs.R_B2C_DOWN).T).astype(np.float32)
     t_cw = (p + R @ np.asarray(cs.T_C_B)).astype(np.float32)
-    tex = psyn.smooth_texture(512, 512, seed=4)
+    tex = psyn.smooth_texture(512, 512, seed=4, device="cpu")
     ours = psyn.render_plane_view(tex, 0.05, torch.as_tensor(R_c2w),
                                   torch.as_tensor(t_cw), K_SMALL, H, W)
     theirs = jsyn.render_plane_view(jnp.asarray(tex.numpy()), 0.05,

@@ -97,7 +97,7 @@ def runs():
     jout = jax.tree.map(np.asarray, jout)
 
     pcfg = FilterConfig(**CFG)
-    pchi2 = ppipe.build_chi2_table(pcfg, torch.float64)
+    pchi2 = ppipe.build_chi2_table(pcfg, torch.float64, device="cpu")
     ps = filter_state_from_numpy(state_to_numpy(st0), torch.float64, "cpu")
     port_msckf = ppipe.msckf_update
 
@@ -160,7 +160,8 @@ def test_run_sequence_matches_frame_steps(runs):
     stacked = ppipe.FrameInput(*(torch.as_tensor(np.array(x[:12]))
                                  for x in frames))
     _, out = ppipe.run_sequence(pcfg, ps, stacked,
-                                ppipe.build_chi2_table(pcfg, torch.float64))
+                                ppipe.build_chi2_table(pcfg, torch.float64,
+                                                       device="cpu"))
     ref = runs["port"][0]
     for field in ("p", "R", "v", "n_update_features", "zupt"):
         np.testing.assert_array_equal(getattr(out, field).numpy(),

@@ -102,7 +102,7 @@ def mid():
     propagation, augmentation and ingest (each step held against JAX)."""
     frames, st0 = sim_frames()
     ps = filter_state_from_numpy(state_to_numpy(st0), torch.float64, "cpu")
-    pchi2 = ppipe.build_chi2_table(PCFG, torch.float64)
+    pchi2 = ppipe.build_chi2_table(PCFG, torch.float64, device="cpu")
     for k in range(K_MID):
         ps, _ = ppipe.filter_step(PCFG, ps, port_frame(frames, k), pchi2)
     js = to_jax(st0, state_to_numpy(ps))
@@ -417,7 +417,8 @@ def test_float32_step_stays_float32(mid):
     ps32 = filter_state_from_numpy(state_to_numpy(mid["ps"]), torch.float32,
                                    "cpu")
     s32, out32 = ppipe.filter_step(PCFG, ps32, fr32,
-                                   ppipe.build_chi2_table(PCFG, torch.float32))
+                                   ppipe.build_chi2_table(PCFG, torch.float32,
+                                                          device="cpu"))
     _, out64 = ppipe.filter_step(PCFG, mid["ps"], fr, mid["pchi2"])
     leaves = state_to_numpy(s32)
     stack = [leaves]

@@ -20,14 +20,16 @@ import torch
 
 import orcvio_tpu_torch
 from orcvio_tpu_torch.config.core import FilterConfig
+from orcvio_tpu_torch.dataio.synthetic import smooth_texture
 from orcvio_tpu_torch.eval.staged import (make_e2e_replay, make_tracker_scan,
                                           stage_sequence)
+from orcvio_tpu_torch.filter.pipeline import build_chi2_table
 from orcvio_tpu_torch.filter.state import FilterState
 from orcvio_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
 from orcvio_tpu_torch.ops.cov_update import cov_update
 from orcvio_tpu_torch.ops.dma_gather import dma_gather_tiles
 from orcvio_tpu_torch.ops.lk_pallas import (AUX_W, lk_iterate_fused,
-                                            lk_level_fused)
+                                            lk_level_fused, lk_level_src)
 from orcvio_tpu_torch.scripts.race_extract import extract_pallas
 from orcvio_tpu_torch.vio import VioState
 
@@ -84,6 +86,8 @@ def test_entry_points_need_a_device():
         assert TrackerState.create(tc).xy.is_cuda
         assert FilterState.create(cfg).P.is_cuda
         assert VioState.create(cfg, 8).sinit.ref_uv.is_cuda
+        assert build_chi2_table(cfg).is_cuda
+        assert smooth_texture(16, 16).is_cuda
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3))
@@ -95,6 +99,10 @@ def test_entry_points_need_a_device():
         make_tracker_scan(tc, np.eye(3))
     with pytest.raises(RuntimeError, match="CUDA"):
         TrackerState.create(tc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_chi2_table(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smooth_texture(16, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         stage_sequence(np.zeros((1, 64, 96), np.uint8), [0.0],
                        np.zeros((1, 2)), np.zeros((1, 2, 3)),
@@ -125,6 +133,9 @@ def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
     aux[:, 4:6], aux[:, 6:8] = 10.0, 30.0
     out = lk_level_fused(win, win, aux, 3, 15)
     assert win.shape == (3, 48, 256) and out.shape == (3, 8)
+    off = torch.zeros(3, dtype=torch.int64)
+    assert torch.equal(lk_level_src(imgs[0], off, imgs[0], off, aux, 3, 15),
+                       out)
     tmpl = torch.rand(3, 15, 15)
     aux[:, 0] = aux[:, 2] = aux[:, 3] = 1.0
     out = lk_iterate_fused(win, tmpl, tmpl, tmpl, aux, 3, 15)

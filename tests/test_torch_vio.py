@@ -51,7 +51,7 @@ def pose(fs):
 
 def run_port(state, frames, start):
     cfg = FilterConfig(**CFG)
-    chi2 = build_chi2_table(cfg, torch.float64)
+    chi2 = build_chi2_table(cfg, torch.float64, device="cpu")
     out = []
     for k in range(start, T):
         state, _ = vio_step(cfg, state, port_frame(frames, k), chi2)
