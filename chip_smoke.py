@@ -46,10 +46,13 @@ Phases:
     its bound;
  7. the K3 path at the bench front end's configuration: klt.track_level at
     each of the 3 levels on frame pairs of phase 2's known-flow stream (200
-    features, windows (200, 48, 256)), its K3 launches counted; K3 against
-    its plain version and against the K2 path (eps = 0) on those windows;
-    pyr_track's flow error on the stream and its launches (K2 once a
-    level, no K1); N = 0; K3's times beside its bound;
+    features, windows (200, 48, 256)), its launches counted (K3 once a
+    call, reading the second level in place; K1 once, for the template's
+    windows); K3 on both routes (the windows K1 cuts and the level read in
+    place), bit-identical, against its plain version and against the K2
+    path (eps = 0); pyr_track's flow error on the stream and its launches
+    (K2 once a level, no K1); N = 0; K3's times on both routes beside its
+    bound;
  8. the K5 path: the ported window-extraction race (T = 30 frames, B = 1
     and 8, us per extract for the plain and K5 variants), its K5 launches
     counted; K5 bit-exact against its plain version at B = 1 and 8 (N =
@@ -560,8 +563,8 @@ def main() -> int:
         from orcvio_tpu_torch.ops.dma_gather import (
             BL, BR, dma_gather_tiles, dma_gather_tiles_plain)
         from orcvio_tpu_torch.ops.lk_pallas import (
-            lk_iterate_fused, lk_iterate_fused_plain, lk_level_fused,
-            lk_level_fused_plain, lk_level_src)
+            lk_iterate_fused, lk_iterate_fused_plain, lk_iterate_src,
+            lk_level_fused, lk_level_fused_plain, lk_level_src)
         from orcvio_tpu_torch.ops.window_gather import window_origins
         from orcvio_tpu_torch.scripts import race_extract as race
         from orcvio_tpu_torch.vio import VioState
@@ -776,6 +779,7 @@ def main() -> int:
     _, kimgs, kr0, kc0 = k1_cases[-2]  # KLT level 0, the new frame
     kb = torch.zeros_like(kr0)
     k1_klt_ms = time_ms(lambda: dma_gather_tiles(kimgs, kr0, kc0, kb, 6, 2))
+    k1_klt_bound = bound_ms(k1_needed_bytes(kimgs, kr0, kc0, 6, 2), 0)[0]
 
     # K2 at level 0 with the main path's eps, on the main path's route (the
     # level read in place) and on the windows K1 cuts; ops counted from the
@@ -816,7 +820,7 @@ def main() -> int:
          "bound_by": k1_by, "library_ms": k1_lib_ms,
          "shape": f"({N},48,256) from {tuple(imgs.shape)} (ORB)",
          "bytes": k1_bytes, "call_ms": k1_call_ms,
-         "klt_level0_ms": k1_klt_ms,
+         "klt_level0_ms": k1_klt_ms, "klt_level0_bound_ms": k1_klt_bound,
          "klt_level0_shape": f"({kr0.shape[0]},48,256)",
          "check": "bit-exact at 3 levels x 2 images + ORB"},
         {"name": "lk_level", "route": "cuda",
@@ -1038,10 +1042,11 @@ def main() -> int:
     k3_launches = lk_iterate_fused.launches
     n_calls = K3_FRAMES * levels
     check(k3_launches == n_calls
-          and dma_gather_tiles.launches == 2 * n_calls
+          and dma_gather_tiles.launches == n_calls
           and lk_level_fused.launches == 0,
           f"K3 launches {k3_launches} == {n_calls} track_level calls, K1 "
-          f"{dma_gather_tiles.launches} == 2 x {n_calls}, K2 "
+          f"{dma_gather_tiles.launches} == {n_calls} (the template's "
+          f"windows; K3 reads the second level in place), K2 "
           f"{lk_level_fused.launches} == 0")
     shift = torch.tensor(SHIFT, device=dev)
     l0_err = torch.cat([torch.linalg.norm(p - xy - shift, dim=1)[conv]
@@ -1054,14 +1059,22 @@ def main() -> int:
     k3_cases = []
     for lv in range(levels):
         c = xy / 2.0 ** lv
+        ai1 = klt.prepare_pyramid(pyrs[1])[lv]
         lw0 = klt.gather_level(klt.prepare_pyramid(pyrs[0])[lv], c)
-        lw1 = klt.gather_level(klt.prepare_pyramid(pyrs[1])[lv], c)
+        lw1 = klt.gather_level(ai1, c)
+        src1 = klt.gather_level(ai1, c, cut=False)
         tmpl = klt._template(lw0, c, P)
         aux, lo, hi = klt._iterate_aux(lw1, tmpl, c, P)
-        k3_cases.append((f"L{lv}", lw0, lw1, c, tmpl, aux, lo, hi))
-    k3_err, k3_k2_err = 0.0, 0.0
-    for name, lw0, lw1, c, tmpl, aux, lo, hi in k3_cases:
+        k3_cases.append((f"L{lv}", lw0, lw1, src1, c, tmpl, aux, lo, hi))
+    k3_err, k3_k2_err, k3_routes_equal = 0.0, 0.0, True
+    for name, lw0, lw1, src1, c, tmpl, aux, lo, hi in k3_cases:
         a = lk_iterate_fused(lw1.win, *tmpl[:3], aux, iters, P)
+        b = lk_iterate_src(src1.level, src1.offset, *tmpl[:3], aux, iters, P,
+                           klt.ROWS, 2 * klt.LANES)
+        same = bool(torch.equal(a, b))
+        k3_routes_equal &= same
+        check(same, f"K3 {name}: the level route is bit-identical to the "
+                    "window route")
         p = lk_iterate_fused_plain(lw1.win, *tmpl[:3], aux, iters, P)
         err = float((a[:, :2] - p[:, :2]).abs().max())
         k3_err = max(k3_err, err)
@@ -1097,20 +1110,28 @@ def main() -> int:
           f"{np.median(pt_err):.4f} px < 0.1")
     empty = klt.track_level(pyrs[0][0], pyrs[1][0], xy[:0], xy[:0], P,
                             iters, klt.KLT_EPS)
-    e_aux = k3_cases[0][5][:0]
-    e_out = lk_iterate_fused(k3_cases[0][2].win[:0], *(
-        x[:0] for x in k3_cases[0][4][:3]), e_aux, iters, P)
+    _, _, lw1, src1, _, tmpl, aux, _, _ = k3_cases[0]
+    e_tmpl = [x[:0] for x in tmpl[:3]]
+    e_out = lk_iterate_fused(lw1.win[:0], *e_tmpl, aux[:0], iters, P)
+    e_src = lk_iterate_src(src1.level, src1.offset[:0], *e_tmpl, aux[:0],
+                           iters, P)
     check([tuple(x.shape) for x in empty] == [(0, 2), (0,), (0,)]
-          and tuple(e_out.shape) == (0, 8),
-          "K3 path N = 0: track_level gives (0, 2), (0,), (0,); K3 (0, 8)")
+          and tuple(e_out.shape) == tuple(e_src.shape) == (0, 8),
+          "K3 path N = 0: track_level gives (0, 2), (0,), (0,); K3 (0, 8) "
+          "on both routes")
 
-    # times at level 0, (200, 48, 256)
-    _, _, lw1, _, tmpl, aux, _, _ = k3_cases[0]
+    # times at level 0, (200, 48, 256): the route track_level takes on the
+    # card (the level read in place) and the windows K1 cuts
     N3 = aux.shape[0]
-    k3_call = lambda: lk_iterate_fused(lw1.win, *tmpl[:3], aux,  # noqa: E731
-                                       iters, P)
+    k3_call = lambda: lk_iterate_src(  # noqa: E731
+        src1.level, src1.offset, *tmpl[:3], aux, iters, P, klt.ROWS,
+        2 * klt.LANES)
     k3_ms = time_ms(k3_call)
     k3_call_ms = time_ms(k3_call, preload=False)
+    k3_win = lambda: lk_iterate_fused(lw1.win, *tmpl[:3], aux,  # noqa: E731
+                                      iters, P)
+    k3_win_ms = time_ms(k3_win)
+    k3_win_call_ms = time_ms(k3_win, preload=False)
     k3_plain_ms = time_ms(lambda: lk_iterate_fused_plain(
         lw1.win, *tmpl[:3], aux, iters, P), reps=20, preload=False)
     k3_bytes, k3_px = k3_needed_bytes(lw1.win, *tmpl[:3], aux, iters, P,
@@ -1125,20 +1146,26 @@ def main() -> int:
                           float(np.median(pt_err)),
                       "pyr_track_tracked": pt_ok,
                       "max_abs_err_vs_plain": k3_err,
-                      "max_abs_err_vs_k2_path": k3_k2_err}})
+                      "max_abs_err_vs_k2_path": k3_k2_err,
+                      "routes_bit_identical": k3_routes_equal}})
     kernels.append(
         {"name": "lk_iterate", "route": "cuda",
-         "source": "orcvio_tpu_torch/csrc/lk_iterate.cu",
+         "source": "orcvio_tpu_torch/csrc/lk_level.cu",
          "replaces": "orcvio_tpu/ops/lk_pallas.py:265",
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None,
-         "shape": f"win ({N3},48,256), t/tgx/tgy ({N3},{P},{P}), "
-                  f"aux ({N3},16), {iters} steps",
+         "shape": f"level {tuple(src1.level.shape)} at {N3} offsets or win "
+                  f"({N3},48,256), t/tgx/tgy ({N3},{P},{P}), aux ({N3},16), "
+                  f"{iters} steps",
          "bytes": k3_bytes, "ops": k3_ops, "win_px_per_feature": k3_px,
-         "call_ms": k3_call_ms, "max_abs_err_vs_k2_path": k3_k2_err,
-         "check": "positions vs plain < 1e-3 px, conv agree >= 99%, "
-                  "columns 4-7 zero, at 3 levels; vs the K2 path < 1e-3 px"})
+         "call_ms": k3_call_ms, "window_route_ms": k3_win_ms,
+         "window_route_call_ms": k3_win_call_ms,
+         "routes_bit_identical": k3_routes_equal,
+         "max_abs_err_vs_k2_path": k3_k2_err,
+         "check": "level route == window route, 3 levels; positions vs "
+                  "plain < 1e-3 px, conv agree >= 99%, columns 4-7 zero; "
+                  "vs the K2 path < 1e-3 px; N = 0 on both routes"})
 
     # ---------------- 8. the K5 path ----------------
     race.extract_pallas.launches = 0

@@ -20,12 +20,15 @@ cv::TermCriteria does) or after ``iters`` steps. ``KLT_EPS = 0`` gives the
 JAX package's fixed-count CPU loop; the parity tests set it so.
 
 ``track_level`` runs one level as template then iterations: ``_template``
-in plain PyTorch, then ``_lk_dispatch``, whose one route here is
-``_lk_iterate_pallas`` and kernel K3 (fixed count, no eps). The JAX
-package's ``track_level`` calls ``_lk_iterate`` directly, the non-TPU side
-of its own ``_lk_dispatch``; both compute the same function, and this is
-what gives K3 a caller. ``_lk_iterate`` here runs the same loop through
-K3's plain version on any device: the reference K3 is held to.
+in plain PyTorch over the window K1 cuts from the first image, then
+``_lk_dispatch``, whose one route here is ``_lk_iterate_pallas`` and kernel
+K3 (fixed count, no eps). On the card K3 reads the second image in place
+(``lk_iterate_src``), as K2 does, so K1 launches once a call; on the CPU
+the window is cut and K3's plain version runs on it. The JAX package's
+``track_level`` calls ``_lk_iterate`` directly, the non-TPU side of its own
+``_lk_dispatch``; both compute the same function, and this is what gives K3
+a caller. ``_lk_iterate`` here runs the same loop through K3's plain
+version on any device: the reference K3 is held to.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ import numpy as np
 import torch
 
 from ..ops.lk_pallas import (AUX_W, lk_iterate_fused,
-                             lk_iterate_fused_plain, lk_level_fused,
+                             lk_iterate_fused_plain, lk_iterate_src,
+                             lk_iterate_src_plain, lk_level_fused,
                              lk_level_src, resample)
 from ..ops.window_gather import (AlignedImage, gather_windows, prepare_image,
                                  window_offsets, window_origins)
@@ -171,13 +175,20 @@ def _iterate_aux(lw: LevelWindows, tmpl, p_init, patch: int):
 
 
 def _iterate(lw: LevelWindows, tmpl, p_init, patch: int, iters: int,
-             iterate):
-    """Fixed-count LK of p over lw.win against tmpl through `iterate` (K3's
-    wrapper or its plain version). Returns (p, residual, conv), p in image
-    coordinates; iterates that leave the search window are clamped."""
+             plain: bool):
+    """Fixed-count LK of p over lw against tmpl: K3 (with `plain`, its plain
+    version), over the cut window or, where it was not cut, over the level
+    in place. Returns (p, residual, conv), p in image coordinates; iterates
+    that leave the search window are clamped."""
     aux, lo, hi = _iterate_aux(lw, tmpl, p_init, patch)
     t, tgx, tgy = tmpl[:3]
-    out = iterate(lw.win, t, tgx, tgy, aux, iters, patch)
+    if lw.win is None:
+        src = lk_iterate_src_plain if plain else lk_iterate_src
+        out = src(lw.level, lw.offset, t, tgx, tgy, aux, iters, patch, ROWS,
+                  2 * LANES)
+    else:
+        win = lk_iterate_fused_plain if plain else lk_iterate_fused
+        out = win(lw.win, t, tgx, tgy, aux, iters, patch)
     conv = _converged(out[:, :2], out[:, 3], tmpl[6], lo, hi)
     return lw.origin + out[:, :2], out[:, 2], conv
 
@@ -185,13 +196,13 @@ def _iterate(lw: LevelWindows, tmpl, p_init, patch: int, iters: int,
 def _lk_iterate(lw: LevelWindows, tmpl, p_init, patch: int, iters: int):
     """The JAX package's fixed-count loop, through K3's plain version on
     any device."""
-    return _iterate(lw, tmpl, p_init, patch, iters, lk_iterate_fused_plain)
+    return _iterate(lw, tmpl, p_init, patch, iters, plain=True)
 
 
 def _lk_iterate_pallas(lw: LevelWindows, tmpl, p_init, patch: int,
                        iters: int):
     """The same loop in one launch of K3 (its plain version on the CPU)."""
-    return _iterate(lw, tmpl, p_init, patch, iters, lk_iterate_fused)
+    return _iterate(lw, tmpl, p_init, patch, iters, plain=False)
 
 
 def _lk_dispatch(lw: LevelWindows, tmpl, p_init, patch: int, iters: int):
@@ -204,10 +215,13 @@ def track_level(img0, img1, xy0, xy1_init, patch: int, iters: int,
     """One pyramid level of LK for all features over raw (H, W) level
     images: the template from img0 at xy0, then `iters` steps over img1
     from xy1_init (K3). eps and search_radius are ignored, as in the JAX
-    package. Returns (p, residual, conv)."""
+    package. The template's window of img0 is cut (K1); on the card K3
+    reads img1's padded level in place, on the CPU its window is cut.
+    Returns (p, residual, conv)."""
     del eps, search_radius
     lw0 = gather_level(prepare_image(img0[None], margin=MARGIN), xy0)
-    lw1 = gather_level(prepare_image(img1[None], margin=MARGIN), xy1_init)
+    ai1 = prepare_image(img1[None], margin=MARGIN)
+    lw1 = gather_level(ai1, xy1_init, cut=not ai1.padded.is_cuda)
     tmpl = _template(lw0, xy0, patch)
     return _lk_dispatch(lw1, tmpl, xy1_init, patch, iters)
 

@@ -38,9 +38,12 @@ plain version computes one.
 K3 replaces ``lk_iterate_fused`` (``_lk_kernel``), the iterate-only kernel
 behind ``frontend/klt.py:_lk_iterate_pallas``: exactly `iters` steps (no
 eps stop) over win from a template t, tgx, tgy computed outside and the
-Hessian in aux, then the residual. On the card ``csrc/lk_iterate.cu``, K2's
-design without the template stage (the two share ``csrc/lk_common.cuh``);
-bound and latency as K2's iterations.
+Hessian in aux, then the residual. On the card it is K2's kernel body
+(``csrc/lk_level.cu``) with the template loaded into registers where K2
+builds it, and K2's two sources: ``lk_iterate_fused`` over window tensors,
+``lk_iterate_src`` over the padded level read in place, the same bits. It
+stages K2's SEARCH_TILE-pixel block, so bounds wider than that give a NaN
+row there too.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ from . import _build
 # [a11 a12 a22 det_safe lo_x lo_y hi_x hi_y . . p_x p_y . . . .]
 AUX_W = 16
 MAX_PATCH = 31  # largest patch the kernel's shared arrays hold
-SEARCH_TILE = 40  # edge of K2's staged block of the second image
+SEARCH_TILE = 40  # edge of the staged block of the searched image (K2, K3)
 
 
 def resample(win, lx, ly, P: int):
@@ -212,29 +215,31 @@ def lk_level_src_plain(img0, off0, img1, off1, aux, iters: int, patch: int,
                                 iters, patch, eps)
 
 
-def _check_src_cuda(img0, off0, img1, off1, aux, patch, rows, lanes):
-    what = "lk level (levels)"
-    for name, t in (("img0", img0), ("img1", img1), ("aux", aux)):
+def _check_src_cuda(what, imgs, offs, aux, patch, rows, lanes, margin):
+    """What the level routes need: float32 2-D images holding (rows, lanes)
+    windows, (N,) int64 offsets, an (N, AUX_W) aux, all contiguous on one
+    device, an odd patch the kernel holds, and windows at least patch +
+    margin each way. imgs, offs: ((name, tensor), ...)."""
+    dev = imgs[0][1].device
+    for name, t in (*imgs, ("aux", aux)):
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
-    for name, t in (("img0", img0), ("off0", off0), ("img1", img1),
-                    ("off1", off1), ("aux", aux)):
-        if t.device != img1.device or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous on "
-                             f"{img1.device}")
+    for name, t in (*imgs, *offs, ("aux", aux)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on {dev}")
     N = aux.shape[0]
-    for name, off in (("off0", off0), ("off1", off1)):
+    for name, off in offs:
         if off.dtype != torch.int64 or tuple(off.shape) != (N,):
             raise ValueError(f"{what}: {name} must be ({N},) int64")
     if aux.shape != (N, AUX_W):
         raise ValueError(f"{what}: aux must be ({N}, {AUX_W})")
     if not 1 <= patch <= MAX_PATCH or patch % 2 == 0:
         raise ValueError(f"{what}: patch must be odd and <= {MAX_PATCH}")
-    for name, img in (("img0", img0), ("img1", img1)):
+    for name, img in imgs:
         if img.dim() != 2 or img.shape[0] < rows or img.shape[1] < lanes:
             raise ValueError(f"{what}: {name} {tuple(img.shape)} must be a "
                              f"2-D image holding ({rows}, {lanes}) windows")
-    if rows < patch + 4 or lanes < patch + 4:
+    if rows < patch + margin or lanes < patch + margin:
         raise ValueError(f"{what}: windows ({rows}, {lanes}) too small for "
                          f"patch {patch}")
 
@@ -252,7 +257,9 @@ def lk_level_src(img0, off0, img1, off1, aux, iters: int, patch: int,
                                   eps, rows, lanes)
     if img1.device.type != "cuda":
         raise ValueError(f"lk level: unsupported device {img1.device}")
-    _check_src_cuda(img0, off0, img1, off1, aux, patch, rows, lanes)
+    _check_src_cuda("lk level (levels)", (("img0", img0), ("img1", img1)),
+                    (("off0", off0), ("off1", off1)), aux, patch, rows, lanes,
+                    4)
     N = aux.shape[0]
     out = torch.empty((N, 8), dtype=img1.dtype, device=img1.device)
     if N == 0:
@@ -303,14 +310,32 @@ def lk_iterate_fused_plain(win, t, tgx, tgy, aux, iters: int, patch: int):
     return torch.stack([lx, ly, res, dn, z, z, z, z], dim=1)
 
 
-def _check_iterate_cuda(win, t, tgx, tgy, aux, patch):
-    _check_common("lk iterate", win,
-                  (("win", win), ("t", t), ("tgx", tgx), ("tgy", tgy),
-                   ("aux", aux)), aux, patch, 2)
+def _check_template(what, t, tgx, tgy, N, patch, device):
     for name, x in (("t", t), ("tgx", tgx), ("tgy", tgy)):
-        if x.shape != (win.shape[0], patch, patch):
-            raise ValueError(f"lk iterate: {name} must be ({win.shape[0]}, "
-                             f"{patch}, {patch}), got {tuple(x.shape)}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {x.dtype}")
+        if x.device != device or not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on {device}")
+        if x.shape != (N, patch, patch):
+            raise ValueError(f"{what}: {name} must be ({N}, {patch}, "
+                             f"{patch}), got {tuple(x.shape)}")
+
+
+def _launch_iterate(entry, lead, device, t, tgx, tgy, aux, N, rows, lanes,
+                    iters, patch):
+    """Launch K3 through C entry `entry` of the lk_level library, its
+    source arguments `lead` first; count the launch."""
+    out = torch.empty((N, 8), dtype=torch.float32, device=device)
+    if N == 0:
+        return out
+    rc = getattr(_build.library("lk_level"), entry)(
+        *lead, t.data_ptr(), tgx.data_ptr(), tgy.data_ptr(), aux.data_ptr(),
+        out.data_ptr(), N, rows, lanes, patch, iters, device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"lk iterate: CUDA error {rc} at launch")
+    lk_iterate_fused.launches += 1
+    return out
 
 
 def lk_iterate_fused(win, t, tgx, tgy, aux, iters: int, patch: int):
@@ -318,30 +343,65 @@ def lk_iterate_fused(win, t, tgx, tgy, aux, iters: int, patch: int):
     t, tgx, tgy (N, P, P) and aux (N, AUX_W) in K3's layout. Returns (N, 8):
     [lx, ly, mean |I - T|, last step norm, 0, 0, 0, 0], (lx, ly) in window
     coordinates. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise. On the card a feature whose search bounds aux[4:8]
+    reach more than SEARCH_TILE pixels of win each way (a search window
+    over SEARCH_TILE - 1 px wide) gets NaN in columns 0-3, as the kernel
+    stages a SEARCH_TILE-pixel block per feature; frontend/klt.py:_converged
+    reads such a row as not converged."""
     if win.device.type == "cpu":
         return lk_iterate_fused_plain(win, t, tgx, tgy, aux, iters, patch)
     if win.device.type != "cuda":
         raise ValueError(f"lk iterate: unsupported device {win.device}")
-    _check_iterate_cuda(win, t, tgx, tgy, aux, patch)
+    _check_common("lk iterate", win, (("win", win), ("aux", aux)), aux,
+                  patch, 2)
     N, R, L = win.shape
-    out = torch.empty((N, 8), dtype=win.dtype, device=win.device)
-    if N == 0:
-        return out
-    lib = _build.library("lk_iterate")
-    rc = lib.lk_iterate(
-        win.data_ptr(), t.data_ptr(), tgx.data_ptr(), tgy.data_ptr(),
-        aux.data_ptr(), out.data_ptr(), N, R, L, patch, iters,
-        win.device.index, torch.cuda.current_stream(win.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"lk iterate: CUDA error {rc} at launch")
-    lk_iterate_fused.launches += 1
-    return out
+    _check_template("lk iterate", t, tgx, tgy, N, patch, win.device)
+    return _launch_iterate("lk_iterate", (win.data_ptr(),), win.device, t,
+                           tgx, tgy, aux, N, R, L, iters, patch)
 
 
 lk_iterate_fused.launches = 0
 
-_build.declare("lk_iterate", "lk_iterate", [
+_build.declare("lk_level", "lk_iterate", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def lk_iterate_src_plain(img, off, t, tgx, tgy, aux, iters: int, patch: int,
+                         rows: int = 48, lanes: int = 256):
+    """Plain PyTorch version of K3's level route: the windows cut, then
+    K3's plain version."""
+    return lk_iterate_fused_plain(cut_windows(img, off, rows, lanes), t, tgx,
+                                  tgy, aux, iters, patch)
+
+
+def lk_iterate_src(img, off, t, tgx, tgy, aux, iters: int, patch: int,
+                   rows: int = 48, lanes: int = 256):
+    """K3 reading the image in place: the (rows, lanes) window of feature n
+    starts at element off[n] of the 2-D padded level img (rows
+    img.shape[-1] apart), as ops/window_gather.py:window_offsets gives it;
+    t, tgx, tgy and aux as lk_iterate_fused's. Returns lk_iterate_fused's
+    (N, 8) rows on those windows, the NaN rows for search bounds wider than
+    SEARCH_TILE included. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if img.device.type == "cpu":
+        return lk_iterate_src_plain(img, off, t, tgx, tgy, aux, iters, patch,
+                                    rows, lanes)
+    if img.device.type != "cuda":
+        raise ValueError(f"lk iterate: unsupported device {img.device}")
+    _check_src_cuda("lk iterate (level)", (("img", img),), (("off", off),),
+                    aux, patch, rows, lanes, 2)
+    N = aux.shape[0]
+    _check_template("lk iterate (level)", t, tgx, tgy, N, patch, img.device)
+    return _launch_iterate(
+        "lk_iterate_src", (img.data_ptr(), off.data_ptr(), img.shape[-1],
+                           img.numel()), img.device, t, tgx, tgy, aux, N,
+        rows, lanes, iters, patch)
+
+
+_build.declare("lk_level", "lk_iterate_src", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

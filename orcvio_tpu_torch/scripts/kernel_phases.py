@@ -1,11 +1,11 @@
-"""Where the time of kernels K2 and K4 goes, phase by phase, on the card.
+"""Where the time of kernels K2, K3 and K4 goes, phase by phase, on the card.
 
-Builds copies of ``csrc/lk_level.cu`` (K2) and ``csrc/cov_update.cu`` (K4)
-with their ``clock64()`` phase stamps compiled in (``-DKPHASES``, see
-``csrc/phases.cuh``), runs each at the main path's shapes and prints, as
-one JSON line, the median (and largest) cycles each phase takes: per
-feature (one warp) for K2, per CTA for K4 (cluster rank 0, which finishes
-last, and every rank), and the medians in microseconds at the SM clock
+Builds copies of ``csrc/lk_level.cu`` (K2 and K3) and
+``csrc/cov_update.cu`` (K4) with their ``clock64()`` phase stamps compiled
+in (``-DKPHASES``, see ``csrc/phases.cuh``), runs each at the shapes its
+path gives it and prints, as one JSON line, the median (and largest)
+cycles each phase takes: per feature (one warp) for K2 and K3, per CTA for
+K4 (cluster rank 0, which finishes last, and every rank), and the medians in microseconds at the SM clock
 measured while the card was busy (a kernel that spins for 2e7 cycles
 between two reads of the global nanosecond timer). Beside them the time
 an empty kernel takes from one CUDA event to the next, the floor under
@@ -20,6 +20,7 @@ Needs a CUDA card and nvcc; the stamped builds go to
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -30,6 +31,7 @@ import torch
 from ..frontend import klt
 from ..ops import _build
 from ..ops.window_gather import prepare_image
+from .lk_times import level_pair
 
 OUT = _build.BUILD_DIR / "phases"
 V, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -37,6 +39,9 @@ V, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 K2_PHASES = ("aux and tile bounds", "template block copied, patch built",
              "gradients, Hessian, search block arrived",
              "Gauss-Newton steps", "residual, output", "total")
+K3_PHASES = ("aux and tile bounds",
+             "search block copies issued, template loaded",
+             "search block arrived", "steps", "residual, output", "total")
 K4_PHASES = ("q loop: copies and DMMA", "partials stored, cluster barrier",
              "partials of every rank added, P read, output stored",
              "closing cluster barrier", "total")
@@ -86,6 +91,7 @@ def _build_lib(name: str, source, defines=()) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
+@functools.cache
 def _stamped(source: str) -> ctypes.CDLL:
     """csrc/<source>.cu built with its phase stamps (csrc/phases.cuh)."""
     return _build_lib(f"{source}_phases", _build.CSRC / f"{source}.cu",
@@ -123,32 +129,19 @@ def _phases(names, stamps) -> dict:
             for k, name in enumerate(names)}
 
 
+def _level_pair(dev, n: int):
+    """lk_times.level_pair on the card: the two images padded as the
+    tracker pads them, the positions and starts as float32."""
+    img0, img1, xy, p1 = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                          for a in level_pair(n))
+    ai0, ai1 = (prepare_image(im[None], klt.MARGIN) for im in (img0, img1))
+    return ai0, ai1, xy, p1
+
+
 def k2_phases(dev, n: int = 200, eps: float = 0.01) -> dict:
-    """One launch of K2's level route at level 0 of the bench front end
-    (a 480x752 texture and its shift by (1.3, -0.7) px, padded to (560,
-    896)), n features, starts within 0.5 px of the true position."""
-    rng = np.random.default_rng(0)
-    H, W = 480, 752
-    base = np.kron(rng.normal(size=(H // 8 + 1, W // 8 + 1)), np.ones((8, 8)))
-    k = np.ones(7) / 7.0
-    for ax in (0, 1):
-        base = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), ax,
-                                   base)
-    img0 = base[:H, :W] * 50.0 + 128.0
-    yy, xx = np.mgrid[0:H, 0:W]
-    x = np.clip(xx - 1.3, 0, W - 1.001)
-    y = np.clip(yy + 0.7, 0, H - 1.001)
-    ix, iy = np.floor(x).astype(int), np.floor(y).astype(int)
-    fx, fy = x - ix, y - iy
-    img1 = ((1 - fy) * ((1 - fx) * img0[iy, ix] + fx * img0[iy, ix + 1])
-            + fy * ((1 - fx) * img0[iy + 1, ix] + fx * img0[iy + 1, ix + 1]))
-    ai0, ai1 = (prepare_image(torch.as_tensor(im, dtype=torch.float32,
-                                              device=dev)[None], klt.MARGIN)
-                for im in (img0, img1))
-    xy = torch.as_tensor(rng.uniform([20, 20], [W - 20, H - 20], (n, 2)),
-                         dtype=torch.float32, device=dev)
-    p1 = xy + torch.tensor([1.3, -0.7], device=dev) + torch.as_tensor(
-        rng.uniform(-0.5, 0.5, (n, 2)), dtype=torch.float32, device=dev)
+    """One launch of K2's level route at level 0 of the bench front end,
+    n features (lk_times.level_pair)."""
+    ai0, ai1, xy, p1 = _level_pair(dev, n)
     s0 = klt.gather_level(ai0, xy, cut=False)
     s1 = klt.gather_level(ai1, p1, cut=False)
     c0, c1 = klt.gather_level(ai0, xy), klt.gather_level(ai1, p1)
@@ -169,6 +162,33 @@ def k2_phases(dev, n: int = 200, eps: float = 0.01) -> dict:
     stamps = _read(lib, n)
     return {"features": n, "eps": eps, "steps_mean": float(stamps[:, 6].mean()),
             "cycles": _phases(K2_PHASES, stamps[:, :6])}
+
+
+def k3_phases(dev, n: int = 200, iters: int = 10) -> dict:
+    """One launch of K3's level route as track_level makes it on the card,
+    at level 0 of the bench front end, n features (lk_times.level_pair): the
+    template from image 0's cut windows, `iters` steps over image 1 read in
+    place."""
+    ai0, ai1, xy, p1 = _level_pair(dev, n)
+    tmpl = klt._template(klt.gather_level(ai0, xy), xy, 15)
+    s1 = klt.gather_level(ai1, p1, cut=False)
+    aux, _, _ = klt._iterate_aux(s1, tmpl, p1, 15)
+    t, tgx, tgy = (x.contiguous() for x in tmpl[:3])
+    lib = _stamped("lk_level")
+    lib.lk_iterate_src.argtypes = [V, V, LL, LL, V, V, V, V, V, I, I, I, I,
+                                   I, I, V]
+    out = torch.empty((n, 8), device=dev)
+    for _ in range(3):  # the last launch's stamps are read
+        lib.lk_iterate_src(s1.level.data_ptr(), s1.offset.data_ptr(),
+                           s1.level.shape[-1], s1.level.numel(),
+                           t.data_ptr(), tgx.data_ptr(), tgy.data_ptr(),
+                           aux.data_ptr(), out.data_ptr(), n, 48, 256, 15,
+                           iters, dev.index or 0,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    stamps = _read(lib, n)
+    return {"features": n, "steps": iters,
+            "cycles": _phases(K3_PHASES, stamps[:, :6])}
 
 
 def k4_phases(dev, D: int = 172, q: int = 444) -> dict:
@@ -232,13 +252,14 @@ def main() -> int:
         timeout=60).stdout.strip()
     probes = _build_lib("probes", PROBES)
     floor = launch_floor_ms(probes)
-    k2, k4 = k2_phases(dev), k4_phases(dev)
+    k2, k3, k4 = k2_phases(dev), k3_phases(dev), k4_phases(dev)
     mhz = sm_mhz(probes, dev)
     k2["us_median"] = _in_us(k2["cycles"], mhz)
+    k3["us_median"] = _in_us(k3["cycles"], mhz)
     k4["us_median_rank0"] = _in_us(k4["cycles_rank0"], mhz)
     print(json.dumps({"kernel_phases": {
         "card": card, "sm_mhz_busy": mhz, "empty_kernel_ms": floor,
-        "k2": k2, "k4": k4}}), flush=True)
+        "k2": k2, "k3": k3, "k4": k4}}), flush=True)
     return 0
 
 

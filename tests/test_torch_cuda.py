@@ -23,9 +23,14 @@ in place) bit-identical to the window route; on either route a feature
 whose search bounds exceed the kernel's tile gets a NaN row, the others
 their own.
 
-K3 (``csrc/lk_iterate.cu``): positions within 1e-3 px of the plain
-version (both exact float32 taps; the sums differ in order), columns 4-7
-exactly 0. K5 (``csrc/extract64.cu``): bit-exact, windows and offsets.
+K3 (``csrc/lk_level.cu``, K2's kernel body with the template given):
+positions and residuals within 1e-3 of the plain version (both exact
+float32 taps; the sums differ in order), columns 4-7 exactly 0, at
+L = 128 and 256, at P = 15, 21 and 31 (each of the kernel's three
+instantiations); the level route (``lk_iterate_src``) bit-identical to the
+window route; a NaN row where the search bounds exceed the tile or the
+window lies outside its source; exactly `iters` steps, a NaN step
+included. K5 (``csrc/extract64.cu``): bit-exact, windows and offsets.
 """
 import numpy as np
 import pytest
@@ -37,7 +42,7 @@ from orcvio_tpu_torch.ops.dma_gather import (dma_gather_tiles,
                                              dma_gather_tiles_plain)
 from orcvio_tpu_torch.ops.lk_pallas import (SEARCH_TILE, lk_iterate_fused,
                                             lk_iterate_fused_plain,
-                                            lk_level_fused,
+                                            lk_iterate_src, lk_level_fused,
                                             lk_level_fused_plain,
                                             lk_level_src)
 from orcvio_tpu_torch.ops.window_gather import (prepare_image,
@@ -126,9 +131,10 @@ def _frame_pair(device, seed=0):
                  for x in (img0, img1))
 
 
-def _k3_case(n, device, seed=0):
-    """Windows, template and aux of one LK level on _frame_pair's frames,
-    as track_level builds them."""
+def _k3_case(n, device, seed=0, patch=15):
+    """K3's inputs on _frame_pair's frames, as track_level builds them on
+    the card: the template from the window of image 0 K1 cuts, and image 1
+    both cut (the window route) and located only (the level route)."""
     rng = np.random.default_rng(seed)
     img0, img1 = _frame_pair(device, seed)
     rng.normal(size=(31, 41))  # the draws _frame_pair made
@@ -136,10 +142,26 @@ def _k3_case(n, device, seed=0):
                                   device=device)
     xy = t(rng.uniform([20, 20], [300, 220], size=(n, 2)))
     lw0 = klt.gather_level(prepare_image(img0[None], klt.MARGIN), xy)
-    lw1 = klt.gather_level(prepare_image(img1[None], klt.MARGIN), xy)
-    tmpl = klt._template(lw0, xy, 15)
-    aux, _, _ = klt._iterate_aux(lw1, tmpl, xy, 15)
-    return lw1.win, tmpl[:3], aux
+    ai1 = prepare_image(img1[None], klt.MARGIN)
+    cut = klt.gather_level(ai1, xy)
+    src = klt.gather_level(ai1, xy, cut=False)
+    tmpl = klt._template(lw0, xy, patch)
+    aux, _, _ = klt._iterate_aux(cut, tmpl, xy, patch)
+    return cut, src, tmpl[:3], aux
+
+
+def _k3_both(cut, src, tmpl, aux, patch=15, lanes=256, iters=10,
+             plain=True):
+    """K3 on the window route and on the level route, and (with `plain`)
+    its plain version, which cannot take NaN positions: it indexes by
+    them."""
+    win = cut.win[:, :, :lanes].contiguous()
+    a = lk_iterate_fused(win, *tmpl, aux, iters, patch)
+    b = lk_iterate_src(src.level, src.offset, *tmpl, aux, iters, patch,
+                       klt.ROWS, lanes)
+    torch.cuda.synchronize()
+    return a, b, (lk_iterate_fused_plain(win, *tmpl, aux, iters, patch)
+                  if plain else None)
 
 
 def _k2_case(n, device, seed=0):
@@ -237,20 +259,77 @@ def test_window_gather_matches_plain(card, n):
 
 
 @pytest.mark.parametrize("lanes", [256, 128])
-@pytest.mark.parametrize("n", [200, 13, 0])
+@pytest.mark.parametrize("n", [200, 65, 64, 33, 5, 1, 0])
 def test_lk_iterate_matches_plain(card, n, lanes):
-    win, (t, tgx, tgy), aux = _k3_case(n, card)
-    win = win[:, :, :lanes].contiguous()
+    cut, src, tmpl, aux = _k3_case(n, card)
     launches = lk_iterate_fused.launches
-    out = lk_iterate_fused(win, t, tgx, tgy, aux, 10, 15)
-    torch.cuda.synchronize()
-    assert lk_iterate_fused.launches == launches + (n > 0)
-    ref = lk_iterate_fused_plain(win, t, tgx, tgy, aux, 10, 15)
-    assert tuple(out.shape) == (n, 8)
+    out, lvl, ref = _k3_both(cut, src, tmpl, aux, lanes=lanes)
+    assert lk_iterate_fused.launches == launches + 2 * (n > 0)
+    assert tuple(out.shape) == tuple(lvl.shape) == (n, 8)
+    assert torch.equal(out, lvl)
     if n:
         assert float((out[:, :2] - ref[:, :2]).abs().max()) < 1e-3
         assert float((out[:, 2] - ref[:, 2]).abs().max()) < 1e-3
         assert bool((out[:, 4:] == 0).all())
+
+
+@pytest.mark.parametrize("patch", [15, 21, 31])
+def test_lk_iterate_each_patch_width(card, patch):
+    """P up to 15, 21 and 31 take the kernel's NT = 8, 16 and 32
+    instantiations."""
+    cut, src, tmpl, aux = _k3_case(40, card, seed=2, patch=patch)
+    out, lvl, ref = _k3_both(cut, src, tmpl, aux, patch)
+    assert torch.equal(out, lvl)
+    assert bool(torch.isfinite(out).all())
+    assert float((out[:, :2] - ref[:, :2]).abs().max()) < 1e-3
+    assert float((out[:, 2] - ref[:, 2]).abs().max()) < 1e-3
+
+
+def test_lk_iterate_flags_what_its_tile_cannot_hold(card):
+    cut, src, tmpl, aux = _k3_case(8, card)
+    ok = _k3_both(cut, src, tmpl, aux)[0]
+    wide = aux.clone()
+    wide[:3, 6:8] = wide[:3, 4:6] + SEARCH_TILE  # bounds past the tile
+    out, lvl, _ = _k3_both(cut, src, tmpl, wide)
+    assert bool(torch.isnan(out[:3, :4]).all())
+    assert bool((out[:3, 4:] == 0).all())
+    assert torch.equal(out[3:], ok[3:])
+    assert torch.equal(lvl[3:], out[3:])
+    assert bool(torch.isnan(lvl[:3, :4]).all())
+    assert bool((lvl[:3, 4:] == 0).all())
+    off = src.offset.clone()  # windows outside the level
+    off[0] = -1
+    off[1] = src.level.numel() - 3
+    out = lk_iterate_src(src.level, off, *tmpl, aux, 10, 15)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[:2, :4]).all())
+    assert bool((out[:2, 4:] == 0).all()) and torch.equal(out[2:], ok[2:])
+
+
+def test_lk_iterate_takes_every_step_past_a_nan(card):
+    """a11 = NaN makes every y step NaN (a12 = 0 keeps x finite), which
+    fminf/fmaxf take to the bound lo_y. The kernel must still take all
+    `iters` steps: x moves exactly as with y pinned to lo_y and a finite
+    a11 (the plain version can run that), where a stop at the first NaN
+    step norm would leave it after one step."""
+    cut, src, tmpl, aux = _k3_case(40, card, seed=1)
+    aux[:, 1] = 0.0
+    aux[:, 11] = aux[:, 5]  # start at y = lo_y
+    pinned = aux.clone()
+    pinned[:, 7] = pinned[:, 5]  # hi_y = lo_y
+    nan = aux.clone()
+    nan[:, 0] = float("nan")
+    out, lvl, _ = _k3_both(cut, src, tmpl, nan, plain=False)
+    ref, _, plain = _k3_both(cut, src, tmpl, pinned)
+    one = _k3_both(cut, src, tmpl, nan, iters=1, plain=False)[0]
+    nan_col = torch.tensor([False, False, False, True] + [False] * 4,
+                           device=card)
+    assert bool((torch.isnan(out) == nan_col).all())  # step norms NaN
+    assert bool((torch.isnan(lvl) == nan_col).all())
+    assert torch.equal(out[:, :3], lvl[:, :3])
+    assert torch.equal(out[:, :3], ref[:, :3])
+    assert float((out[:, :2] - plain[:, :2]).abs().max()) < 1e-3
+    assert bool((out[:, 0] != one[:, 0]).any())
 
 
 @pytest.mark.parametrize("batch,n", [(1, 200), (8, 200), (2, 13), (3, 0)])
@@ -272,12 +351,27 @@ def test_extract64_matches_plain(card, batch, n):
 
 
 def test_lk_iterate_and_extract64_reject_what_they_cannot_take(card):
-    win, (t, tgx, tgy), aux = _k3_case(4, card)
+    cut, src, (t, tgx, tgy), aux = _k3_case(4, card)
+    win = cut.win
     with pytest.raises(TypeError):
         lk_iterate_fused(win.double(), t, tgx, tgy, aux, 10, 15)
+    with pytest.raises(TypeError):
+        lk_iterate_fused(win, t.double(), tgx, tgy, aux, 10, 15)
     with pytest.raises(ValueError):
         lk_iterate_fused(win, t[:, :14, :14].contiguous(), tgx, tgy, aux,
                          10, 15)
+    with pytest.raises(ValueError):
+        lk_iterate_fused(win, t.transpose(1, 2), tgx, tgy, aux, 10, 15)
+    with pytest.raises(TypeError):
+        lk_iterate_src(src.level.double(), src.offset, t, tgx, tgy, aux, 10,
+                       15)
+    with pytest.raises(ValueError):
+        lk_iterate_src(src.level, src.offset.int(), t, tgx, tgy, aux, 10, 15)
+    with pytest.raises(ValueError):
+        lk_iterate_src(src.level, src.offset, t, tgx.transpose(1, 2), tgy,
+                       aux, 10, 15)
+    with pytest.raises(ValueError):
+        lk_iterate_src(src.level.t(), src.offset, t, tgx, tgy, aux, 10, 15)
     imgp = torch.zeros(2, race.HP, race.WP, device=card)
     oy = torch.zeros(2, 5, dtype=torch.int32, device=card)
     with pytest.raises(ValueError):

@@ -29,7 +29,8 @@ from orcvio_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
 from orcvio_tpu_torch.ops.cov_update import cov_update
 from orcvio_tpu_torch.ops.dma_gather import dma_gather_tiles
 from orcvio_tpu_torch.ops.lk_pallas import (AUX_W, lk_iterate_fused,
-                                            lk_level_fused, lk_level_src)
+                                            lk_iterate_src, lk_level_fused,
+                                            lk_level_src)
 from orcvio_tpu_torch.scripts.race_extract import extract_pallas
 from orcvio_tpu_torch.vio import VioState
 
@@ -140,6 +141,8 @@ def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
     aux[:, 0] = aux[:, 2] = aux[:, 3] = 1.0
     out = lk_iterate_fused(win, tmpl, tmpl, tmpl, aux, 3, 15)
     assert out.shape == (3, 8)
+    assert torch.equal(lk_iterate_src(imgs[0], off, tmpl, tmpl, tmpl, aux, 3,
+                                      15), out)
     oy = torch.zeros(2, 3, dtype=torch.int32)
     w, off = extract_pallas(torch.rand(2, 64, 256), oy, oy + 70)
     assert w.shape == (2, 3, 36, 128) and bool((off == 6).all())
