@@ -1,20 +1,26 @@
-"""Synthetic VIO stream: analytic trajectory, exact IMU, textured ground plane.
+"""Synthetic VIO stream: analytic trajectory, exact IMU, landmark tracks,
+textured ground plane.
 
-The port's own copy of what it needs from ``orcvio_tpu/dataio/synthetic.py``:
-the host-side (numpy float64) trajectory, velocity and IMU by finite
-differences, and the ground-plane renderer, which runs on the device here.
-Together they make the benchmark-like stream of
-``scripts/make_bench_seq.py`` (a static start, then flight over a textured
-plane) wherever the port runs, without dataset bytes.
+The port's own copy of ``orcvio_tpu/dataio/synthetic.py``'s host-side
+(numpy float64) half: the trajectory, its velocity and IMU in closed form
+(``kinematics_np``; the JAX package's ``generate`` takes them by finite
+differences, 2.5e-8 away, and its EuRoC writer by autodiff, equal to
+float64 rounding), the landmark world and ``generate``'s stacked
+FrameInput stream; and the ground-plane renderer, which runs on the
+device here. Together they make the benchmark-like
+stream of ``scripts/make_bench_seq.py`` (a static start, then flight over
+a textured plane) wherever the port runs.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..filter.pipeline import FrameInput
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,42 +88,152 @@ def trajectory_pose_np(sim: SimConfig, t):
     return R, p
 
 
-# 5-point central-difference stencils: first and second derivative O(h^4)
-_FD1 = (np.array([1.0, -8.0, 8.0, -1.0]) / 12.0, np.array([-2, -1, 1, 2]), 1e-4)
-_FD2 = (np.array([-1.0, 16.0, -30.0, 16.0, -1.0]) / 12.0,
-        np.array([-2, -1, 0, 1, 2]), 1e-3)
+def _warp_derivs_np(sim: SimConfig, t):
+    """(tau, dtau/dt, d2tau/dt2) of the C2 time warp, in closed form."""
+    if sim.static_time <= 0:
+        return t, np.ones_like(t), np.zeros_like(t)
+    s = t - sim.static_time
+    u = np.clip(s / sim.ramp_time, 0.0, 1.0)
+    du = np.where((u > 0) & (u < 1), 1.0 / sim.ramp_time, 0.0)
+    w = u * u * u * (10.0 - 15.0 * u + 6.0 * u * u)
+    w1 = 30.0 * u * u * (1.0 - u) ** 2
+    w2 = 60.0 * u * (1.0 - u) * (1.0 - 2.0 * u)
+    return s * w, w + s * w1 * du, 2.0 * w1 * du + s * w2 * du * du
 
 
-def velocity_np(sim: SimConfig, t):
-    """dp/dt by finite differences, vectorized over t -> (..., 3)."""
-    c, off, h = _FD1
+def _so3_right_jacobian_np(phi):
+    """Jr(phi) = I - (1 - cos t)/t^2 hat(phi) + (t - sin t)/t^3 hat(phi)^2."""
+    th = np.linalg.norm(phi, axis=-1)[..., None, None]
+    small = th < 1e-6
+    ts = np.where(small, 1.0, th)
+    b = np.where(small, 0.5 - th**2 / 24.0, (1.0 - np.cos(ts)) / ts**2)
+    c = np.where(small, 1.0 / 6.0 - th**2 / 120.0, (ts - np.sin(ts)) / ts**3)
+    K = np.zeros(phi.shape[:-1] + (3, 3))
+    K[..., 0, 1], K[..., 0, 2] = -phi[..., 2], phi[..., 1]
+    K[..., 1, 0], K[..., 1, 2] = phi[..., 2], -phi[..., 0]
+    K[..., 2, 0], K[..., 2, 1] = -phi[..., 1], phi[..., 0]
+    return np.broadcast_to(np.eye(3), K.shape) - b * K + c * (K @ K)
+
+
+def kinematics_np(sim: SimConfig, t):
+    """Velocity, gyro and accelerometer of the analytic trajectory by its
+    closed-form derivatives (what the JAX package's autodiff
+    ``imu_measurements`` gives, to float64 rounding), vectorized over t:
+    (v (..., 3), gyro = vee(R^T dR/dt) (..., 3), acc = R^T (d2p/dt2 - g)
+    (..., 3))."""
     t = np.asarray(t, np.float64)
-    return sum(ci * trajectory_pose_np(sim, t + oi * h)[1]
-               for ci, oi in zip(c, off)) / h
-
-
-def imu_np(sim: SimConfig, t):
-    """Exact-trajectory gyro and accelerometer by float64 finite differences:
-    gyro = vee(R^T dR/dt), acc = R^T (d2p/dt2 - g)."""
-    t = np.asarray(t, np.float64)
-    c1, off1, h1 = _FD1
-    Rdot = sum(ci * trajectory_pose_np(sim, t + oi * h1)[0]
-               for ci, oi in zip(c1, off1)) / h1
-    c2, off2, h2 = _FD2
-    pddot = sum(ci * trajectory_pose_np(sim, t + oi * h2)[1]
-                for ci, oi in zip(c2, off2)) / (h2 * h2)
+    tau, d1, d2 = _warp_derivs_np(sim, t)
+    w, r = sim.omega, sim.radius
+    wt = w * tau
+    dp = np.stack([r * w * np.cos(wt), r * w * np.sin(wt),
+                   0.28 * w * np.cos(0.7 * wt)], -1)
+    ddp = np.stack([-r * w * w * np.sin(wt), r * w * w * np.cos(wt),
+                    -0.196 * w * w * np.sin(0.7 * wt)], -1)
+    v = dp * d1[..., None]
+    pddot = ddp * (d1 * d1)[..., None] + dp * d2[..., None]
+    roll = 0.15 * np.sin(1.3 * wt)
+    pitch = 0.12 * np.sin(0.9 * wt + 0.5)
+    phi = np.stack([roll, pitch, np.zeros_like(roll)], -1)
+    dphi = np.stack([0.15 * 1.3 * w * np.cos(1.3 * wt),
+                     0.12 * 0.9 * w * np.cos(0.9 * wt + 0.5),
+                     np.zeros_like(roll)], -1) * d1[..., None]
+    E = _so3_exp_np(phi)
+    # R = Rz(yaw) E(phi): R^T dR/dt = hat(E^T e_z dyaw + Jr(phi) dphi)
+    gyro = (E[..., 2, :] * (w * d1)[..., None]
+            + np.einsum("...ij,...j->...i", _so3_right_jacobian_np(phi), dphi))
     R, _ = trajectory_pose_np(sim, t)
-    W = np.swapaxes(R, -1, -2) @ Rdot
-    gyro = np.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], -1)
     g_w = np.array([0.0, 0.0, -sim.gravity])
     acc = np.einsum("...ji,...j->...i", R, pddot - g_w)
-    return gyro, acc
+    return v, gyro, acc
 
 
 def initial_state_np(sim: SimConfig):
     """(R0, p0, v0) at t = 0."""
     R0, p0 = trajectory_pose_np(sim, 0.0)
-    return R0, p0, velocity_np(sim, 0.0)
+    return R0, p0, kinematics_np(sim, 0.0)[0]
+
+
+def _landmarks_np(sim: SimConfig):
+    """Landmarks scattered around the trajectory's circle, various heights."""
+    rng = np.random.default_rng(sim.seed)
+    ang = rng.uniform(0, 2 * np.pi, sim.n_landmarks)
+    rad = rng.uniform(sim.radius + 1.5, sim.radius + 6.0, sim.n_landmarks)
+    z = rng.uniform(-2.0, 3.0, sim.n_landmarks)
+    pts = np.stack([rad * np.sin(ang), rad * (1 - np.cos(ang)), z], axis=1)
+    # recentre roughly on the circle's centre (0, r)
+    pts[:, 1] = rng.uniform(-3.0, sim.radius * 2 + 3.0, sim.n_landmarks)
+    pts[:, 0] = rng.uniform(-sim.radius - 4, sim.radius + 4, sim.n_landmarks)
+    return pts
+
+
+def make_landmarks(sim: SimConfig, dtype=torch.float32, device=None):
+    """(n_landmarks, 3) world points on `device` (the card unless given)."""
+    return torch.as_tensor(_landmarks_np(sim)).to(resolve_device(device),
+                                                  dtype)
+
+
+class SimData(NamedTuple):
+    frames: FrameInput  # stacked over time, leading dim n_frames
+    gt_R: torch.Tensor  # (T, 3, 3)
+    gt_p: torch.Tensor  # (T, 3)
+    gt_v: torch.Tensor  # (T, 3)
+    landmarks: torch.Tensor
+
+
+def generate(sim: SimConfig, R_b2c=None, t_c_b=None, dtype=torch.float32,
+             device=None) -> SimData:
+    """The stacked FrameInput sequence of `sim`: per-frame IMU slabs (t_{k-1},
+    t_k] with noise, and noisy normalized observations of the landmarks in
+    view. Computed in numpy float64 on the host, in the JAX package's
+    generator order; the result is put on `device` (the card unless given)
+    once, as `dtype` (integers and masks keep theirs)."""
+    device = resolve_device(device)
+    R_b2c = np.eye(3) if R_b2c is None else np.asarray(R_b2c, np.float64)
+    t_c_b = np.zeros(3) if t_c_b is None else np.asarray(t_c_b, np.float64)
+    rng = np.random.default_rng(sim.seed + 1)
+    dt_f = 1.0 / sim.frame_hz
+    dt_i = 1.0 / sim.imu_hz
+    lm = _landmarks_np(sim)
+    frame_ts = (np.arange(sim.n_frames) + 1) * dt_f
+
+    # IMU samples per frame: (t_{k-1}, t_k]
+    imu_t = frame_ts[:, None] - dt_f + dt_i * (1 + np.arange(sim.imu_slab))
+    imu_mask = imu_t <= frame_ts[:, None] + 1e-9
+    _, gyro, acc = kinematics_np(sim, imu_t.reshape(-1))
+    gyro = gyro.reshape(sim.n_frames, sim.imu_slab, 3)
+    acc = acc.reshape(sim.n_frames, sim.imu_slab, 3)
+    gyro = gyro + rng.normal(size=gyro.shape) * sim.gyro_noise
+    acc = acc + rng.normal(size=acc.shape) * sim.acc_noise
+    gt_R, gt_p = trajectory_pose_np(sim, frame_ts)
+    gt_v = kinematics_np(sim, frame_ts)[0]
+
+    M = sim.max_obs
+    fids = np.full((sim.n_frames, M), -1, np.int32)
+    uvs = np.zeros((sim.n_frames, M, 2))
+    meas_mask = np.zeros((sim.n_frames, M), bool)
+    for k in range(sim.n_frames):
+        R_c2w = gt_R[k] @ R_b2c.T
+        pc = (lm - (gt_p[k] + gt_R[k] @ t_c_b)) @ R_c2w  # camera frame
+        z = np.maximum(pc[:, 2], 1e-6)
+        vis = ((pc[:, 2] > 0.5) & (np.abs(pc[:, 0] / z) < sim.fov_limit)
+               & (np.abs(pc[:, 1] / z) < sim.fov_limit))
+        idx = np.nonzero(vis)[0][:M]
+        n = len(idx)
+        fids[k, :n] = idx
+        uvs[k, :n] = pc[idx, :2] / pc[idx, 2:3] \
+            + rng.normal(size=(n, 2)) * sim.uv_noise
+        meas_mask[k, :n] = True
+
+    def put(x, dt=dtype):
+        return torch.as_tensor(x).to(device=device, dtype=dt)
+
+    frames = FrameInput(
+        t=put(frame_ts), imu_t=put(imu_t), imu_gyro=put(gyro),
+        imu_acc=put(acc), imu_mask=put(imu_mask, torch.bool),
+        fids=put(fids, torch.int32), uvs=put(uvs),
+        uv_vels=put(np.zeros_like(uvs)), meas_mask=put(meas_mask, torch.bool))
+    return SimData(frames=frames, gt_R=put(gt_R), gt_p=put(gt_p),
+                   gt_v=put(gt_v), landmarks=put(lm))
 
 
 def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:

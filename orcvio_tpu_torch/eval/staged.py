@@ -135,3 +135,14 @@ def make_tracker_scan(tc: TrackerConfig, R_b2c, dtype=torch.float32,
         return ts, FrameInput(*(torch.stack(x) for x in zip(*outs)))
 
     return scan
+
+
+def load_bench_images(image_paths, height, width, limit=None) -> np.ndarray:
+    """(K, height, width) uint8 frames decoded from PNG paths."""
+    from ..dataio._png import read_gray8
+
+    paths = image_paths if limit is None else image_paths[:limit]
+    out = np.empty((len(paths), height, width), np.uint8)
+    for i, p in enumerate(paths):
+        out[i] = read_gray8(p)
+    return out

@@ -1,10 +1,10 @@
-"""Trajectory evaluation: ATE after position + yaw alignment (numpy).
+"""Trajectory evaluation: ATE with SE(3), Sim(3) or yaw alignment, and the
+relative error (numpy).
 
-The port's own copy of what it needs from ``orcvio_tpu/eval/trajectory.py``
-(reference: python_scripts/trajectory_eval, rpg_trajectory_evaluation):
-nearest-timestamp association and the gravity-aligned 4-DoF ("posyaw")
-alignment that VIO is scored with. Evaluation is host-side and off the hot
-path.
+The port's own copy of ``orcvio_tpu/eval/trajectory.py`` (reference:
+python_scripts/trajectory_eval, rpg_trajectory_evaluation):
+nearest-timestamp association, Umeyama alignment, ATE and the KITTI-style
+relative error. Evaluation is host-side and off the hot path.
 """
 from __future__ import annotations
 
@@ -31,6 +31,18 @@ def associate(t_est, t_gt, max_dt=0.02):
     return np.nonzero(ok)[0], jj[ok]
 
 
+def umeyama(src, dst, with_scale=False):
+    """Least-squares similarity transform dst ~ s R src + t (Umeyama 1991)."""
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    sc, dc = src - mu_s, dst - mu_d
+    U, S, Vt = np.linalg.svd(dc.T @ sc / len(src))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / ((sc**2).sum() / len(src)) \
+        if with_scale else 1.0
+    return s, R, mu_d - s * R @ mu_s
+
+
 def align_yaw_only(src, dst):
     """Position + yaw alignment (the gravity-aligned VIO-standard 4-DoF)."""
     mu_s, mu_d = src.mean(0), dst.mean(0)
@@ -43,20 +55,20 @@ def align_yaw_only(src, dst):
     return 1.0, R, mu_d - R @ mu_s
 
 
-def ate(t_est, p_est, q_est, t_gt, p_gt, q_gt, alignment="posyaw", max_dt=0.02):
-    """Absolute trajectory error after alignment ("posyaw" or "none").
+def ate(t_est, p_est, q_est, t_gt, p_gt, q_gt, alignment="se3", max_dt=0.02):
+    """Absolute trajectory error after alignment: "se3", "sim3", "posyaw"
+    or "none".
 
     Returns {"rmse_trans" (m), "rmse_rot_deg", "mean_trans",
     "median_trans", "n_matched", "scale"}."""
-    if alignment not in ("posyaw", "none"):
-        raise NotImplementedError(f"alignment {alignment!r}: the port keeps "
-                                  "posyaw and none")
     ie, ig = associate(np.asarray(t_est), np.asarray(t_gt), max_dt)
     if len(ie) < 3:
         raise ValueError(f"too few associations: {len(ie)}")
     pe = np.asarray(p_est)[ie]
     pg = np.asarray(p_gt)[ig]
-    if alignment == "posyaw":
+    if alignment in ("se3", "sim3"):
+        s, R, t = umeyama(pe, pg, with_scale=alignment == "sim3")
+    elif alignment == "posyaw":
         s, R, t = align_yaw_only(pe, pg)
     else:
         s, R, t = 1.0, np.eye(3), np.zeros(3)
@@ -74,3 +86,26 @@ def ate(t_est, p_est, q_est, t_gt, p_gt, q_gt, alignment="posyaw", max_dt=0.02):
         "n_matched": int(len(ie)),
         "scale": float(s),
     }
+
+
+def relative_errors(t_est, p_est, t_gt, p_gt,
+                    distances=(8.0, 16.0, 24.0, 32.0), max_dt=0.02):
+    """KITTI-style relative translation error (%) over sub-trajectory
+    lengths: {distance: mean error} for each distance the track spans."""
+    ie, ig = associate(np.asarray(t_est), np.asarray(t_gt), max_dt)
+    pe = np.asarray(p_est)[ie]
+    pg = np.asarray(p_gt)[ig]
+    dist = np.concatenate(
+        [[0], np.cumsum(np.linalg.norm(np.diff(pg, axis=0), axis=1))])
+    out = {}
+    for d in distances:
+        errs = []
+        for i in range(len(pg)):
+            j = np.searchsorted(dist, dist[i] + d)
+            if j >= len(pg):
+                break
+            err = (pe[j] - pe[i]) - (pg[j] - pg[i])
+            errs.append(np.linalg.norm(err) / max(d, 1e-9) * 100.0)
+        if errs:
+            out[d] = float(np.mean(errs))
+    return out

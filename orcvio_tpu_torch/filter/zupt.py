@@ -54,9 +54,9 @@ def check_zupt_feat(cfg: FilterConfig, state: FilterState,
     return (n >= 20) & (max_dis < cfg.zupt_max_feature_dis) & (max_dis >= 0)
 
 
-def check_zupt_imu(cfg: FilterConfig, state: FilterState, imu_t, gyro_m, acc_m,
-                   imu_mask, chi2_table, chi2_multiplier: float = 1.0):
-    """IMU disturbance chi-square test. Ref: checkZUPTIMU (orcvio.cpp:3129).
+def zupt_imu_chi2(cfg: FilterConfig, state: FilterState, imu_t, acc_m,
+                  imu_mask):
+    """The IMU disturbance test's statistic: (chi2, number of sample pairs).
 
     Residuals per sample: [gyro ~ 0 (zeroed, as the reference does),
     R(acc - ba) + g ~ 0]; marginal covariance over [theta, bg, ba]."""
@@ -101,8 +101,14 @@ def check_zupt_imu(cfg: FilterConfig, state: FilterState, imu_t, gyro_m, acc_m,
     rm = r.reshape(-1)
     S = Hm @ P_marg @ Hm.T + torch.diag(Rdiag)
     x, info = torch.linalg.solve_ex(S, rm)
-    chi2 = rm @ torch.where(info == 0, x, torch.nan)
-    n_pairs = torch.sum(pair_mask)
+    return rm @ torch.where(info == 0, x, torch.nan), torch.sum(pair_mask)
+
+
+def check_zupt_imu(cfg: FilterConfig, state: FilterState, imu_t, gyro_m, acc_m,
+                   imu_mask, chi2_table, chi2_multiplier: float = 1.0):
+    """IMU disturbance chi-square test. Ref: checkZUPTIMU (orcvio.cpp:3129).
+    The gyro rows are zeroed, so gyro_m is not read."""
+    chi2, n_pairs = zupt_imu_chi2(cfg, state, imu_t, acc_m, imu_mask)
     dof = torch.clamp(n_pairs * 3, 1, chi2_table.shape[0] - 1)
     ok_chi2 = chi2 < chi2_multiplier * take(chi2_table, dof)
     ok_vel = torch.linalg.norm(state.imu.v) < _ZUPT_MAX_VELOCITY

@@ -1,14 +1,27 @@
 """SE(3) helpers, batched over leading dimensions.
 
 Counterpart of ``orcvio_tpu/math/se3.py`` (reference: se3_ops.hpp): what
-the filter uses. Twist convention [rho, phi], translation first
-(se3_ops.hpp:510).
+the filter and the dynamic initializer use. Twist convention [rho, phi],
+translation first (se3_ops.hpp:510).
 """
 from __future__ import annotations
 
 import torch
 
 from . import so3
+
+
+def exp(xi):
+    """se(3) twist (..., 6) [rho, phi] -> homogeneous transform (..., 4, 4)."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    t = torch.einsum("...ij,...j->...i", so3.left_jacobian(phi), rho)
+    return make_pose(so3.exp(phi), t)
+
+
+def inverse_pose(T):
+    """Inverse of a rigid transform. Ref: se3_ops.hpp:30-180 (inversePose)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_pose(Rt, -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3]))
 
 
 def make_pose(R, t):

@@ -66,3 +66,15 @@ def vio_step(cfg: FilterConfig, state: VioState, frame: FrameInput, chi2_table):
         return _init_step(cfg, state, frame)
     fs, out = filter_step(cfg, state.filter, frame, chi2_table)
     return state.replace(filter=fs), out
+
+
+def run_vio(cfg: FilterConfig, state: VioState, frames: FrameInput,
+            chi2_table):
+    """vio_step over stacked frames (T, ...): (final state, FrameOutput of
+    (T, ...) tensors), the JAX package's ``lax.scan`` as a loop."""
+    outs = []
+    for k in range(frames.t.shape[0]):
+        state, out = vio_step(cfg, state, FrameInput(*(x[k] for x in frames)),
+                              chi2_table)
+        outs.append(out)
+    return state, FrameOutput(*(torch.stack(x) for x in zip(*outs)))

@@ -378,3 +378,67 @@ def test_lk_iterate_and_extract64_reject_what_they_cannot_take(card):
         race.extract_pallas(imgp, oy.long(), oy)
     with pytest.raises(TypeError):
         race.extract_pallas(imgp.double(), oy, oy)
+
+
+# --- one filter frame after init captured as a CUDA graph ---
+# A frame step that waits on the host (a read-back, or a solver that
+# synchronises inside) cannot be captured: torch.cuda.graph raises. The
+# stream is the filter parity fixture of tests/test_torch_filter.py (a 1 s
+# static start, then motion) from the port's generate, with ZUPT on, so the
+# captured frame runs ZUPT's chi-square solve and the EKF updates.
+FILTER_CFG = dict(sw_size=8, max_features=48, max_track_len=6, imu_slab=24,
+                  max_update_features=8, use_larvio=True,
+                  use_left_perturbation=False, use_closed_form_cov_prop=True,
+                  if_zupt=True, feature_idp_dim=1, ekf_feature_cap=6,
+                  observation_noise=0.004, tri_translation_threshold=-1.0,
+                  zupt_max_feature_dis=0.012)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_filter_frame_captures_as_a_cuda_graph(card, dtype):
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.dataio import synthetic as syn
+    from orcvio_tpu_torch.filter import pipeline as pipe
+    from orcvio_tpu_torch.filter.state import FilterState
+
+    sim = syn.SimConfig(n_frames=30, n_landmarks=120, max_obs=40,
+                        imu_slab=24, seed=3, uv_noise=0.001, static_time=1.0,
+                        ramp_time=1.0, fov_limit=0.9)
+    R_b2c = np.asarray([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    t_c_b = np.asarray([0.05, 0.02, 0.0])
+    frames = syn.generate(sim, R_b2c, t_c_b, dtype, device=card).frames
+    cfg = FilterConfig(**FILTER_CFG)
+    st = FilterState.create(cfg, dtype, device=card)
+    R0, p0, v0 = (torch.as_tensor(x).to(card, dtype)
+                  for x in syn.initial_state_np(sim))
+    imu = st.imu.replace(R=R0, p=p0, v=v0)
+    st = st.replace(imu=imu, imu_fej_now=imu, imu_old=imu,
+                    R_b2c=torch.as_tensor(R_b2c).to(card, dtype),
+                    t_c_b=torch.as_tensor(t_c_b).to(card, dtype),
+                    initialized=torch.ones_like(st.initialized))
+    chi2 = pipe.build_chi2_table(cfg, dtype, device=card)
+    for k in range(25):  # a full window of clones and tracked features
+        st, _ = pipe.filter_step(cfg, st, pipe.FrameInput(
+            *(x[k] for x in frames)), chi2)
+    frame = pipe.FrameInput(*(x[25].clone() for x in frames))
+    want_state, want = pipe.filter_step(cfg, st, frame, chi2)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(2):
+            pipe.filter_step(cfg, st, frame, chi2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_state, got = pipe.filter_step(cfg, st, frame, chi2)
+    graph.replay()
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for field in ("p", "R", "v"):
+        torch.testing.assert_close(getattr(got, field),
+                                   getattr(want, field), rtol=0, atol=tol)
+    assert bool(got.zupt == want.zupt)
+    assert bool(got.n_update_features == want.n_update_features)
+    torch.testing.assert_close(got_state.P, want_state.P, rtol=0,
+                               atol=tol * 10)

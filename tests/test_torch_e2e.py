@@ -1,8 +1,9 @@
 """The slice as a whole: the port's make_e2e_replay against the JAX package's.
 
-The stream is chip_smoke.py's end-to-end stream (the bench trajectory, IMU
-noise and biases, ground-plane texture and image noise), cut to 40 frames
-with a 0.5 s static start and seen by a 160x120 camera. Static init needs
+The stream is chip_smoke.py's end-to-end stream (the EuRoC writer's
+make_stream: the bench trajectory, IMU noise and biases, ground-plane
+texture and image noise), cut to 40 frames with a 0.5 s static start and
+seen by a 160x120 camera. Static init needs
 5 static frames; the filter runs the frames after it at small capacities
 (8 clones, 48 feature rows, 6 one-dof EKF features) with the bench flags.
 Both packages run in float64 on the CPU, the port with KLT_EPS = 0 and the
@@ -13,9 +14,9 @@ Also the port's smooth_texture and render_plane_view against the JAX
 package's.
 
 Run as a script, ``python tests/test_torch_e2e.py --jax-bench-ate``, it runs
-the JAX package's replay over chip_smoke.py's full end-to-end stream (its
-own renderer, float32 on the CPU, as bench.py runs it) and prints the JAX
-figures that chip_smoke.py holds the port to.
+the JAX package's replay over chip_smoke.py's full end-to-end stream (the
+port writer's frames and IMU, made on the CPU; float32, as bench.py runs
+it) and prints the JAX figures that chip_smoke.py holds the port to.
 """
 import json
 import sys
@@ -39,6 +40,7 @@ from orcvio_tpu.frontend.tracker import TrackerConfig as JaxTrackerConfig
 from orcvio_tpu.frontend.tracker import TrackerState as JaxTrackerState
 from orcvio_tpu.vio import VioState as JaxVioState
 from orcvio_tpu_torch.config.core import FilterConfig
+from orcvio_tpu_torch.dataio import euroc_writer as pwriter
 from orcvio_tpu_torch.dataio import synthetic as psyn
 from orcvio_tpu_torch.eval.staged import make_e2e_replay, stage_sequence
 from orcvio_tpu_torch.frontend import klt as pklt
@@ -77,25 +79,19 @@ def _gumbels(key, steps):
     return torch.as_tensor(np.stack(out))
 
 
+WC = pwriter.WriterConfig(cam=pwriter.CameraModel(W, H, *K_SMALL))
+
+
 @pytest.fixture(scope="module")
 def stream():
     sim = psyn.SimConfig(n_frames=T, **SIM)
-    tex = psyn.smooth_texture(cs.TEXTURE["size"], cs.TEXTURE["size"],
-                              seed=cs.TEXTURE["seed"], device="cpu")
-
-    def render(R, t):
-        return psyn.render_plane_view(
-            tex, cs.TEXTURE["scale"], torch.as_tensor(R),
-            torch.as_tensor(t), K_SMALL, H, W).numpy()
-
-    return cs.bench_stream(T, lambda t: psyn.trajectory_pose_np(sim, t),
-                           lambda t: psyn.imu_np(sim, t), render, SIM)
+    return cs.bench_inputs(pwriter.make_stream(sim, WC, device="cpu"))
 
 
 @pytest.fixture(scope="module")
 def runs(stream):
-    inputs = stream[:6]
-    R_b2c, t_c_b = np.asarray(cs.R_B2C_DOWN), np.asarray(cs.T_C_B)
+    inputs = stream
+    R_b2c, t_c_b = pwriter.R_B2C_DOWN, np.asarray(WC.t_c_b)
     jtc = JaxTrackerConfig(**TRACKER)
     jcfg = JaxFilterConfig(**FILTER)
     jts0 = JaxTrackerState.create(jtc, jnp.float64)
@@ -160,8 +156,8 @@ def test_render_plane_view_matches_jax(t):
     stream is rendered."""
     sim = psyn.SimConfig(n_frames=T, **SIM)
     R, p = psyn.trajectory_pose_np(sim, t)
-    R_c2w = (R @ np.asarray(cs.R_B2C_DOWN).T).astype(np.float32)
-    t_cw = (p + R @ np.asarray(cs.T_C_B)).astype(np.float32)
+    R_c2w = (R @ pwriter.R_B2C_DOWN.T).astype(np.float32)
+    t_cw = (p + R @ np.asarray(WC.t_c_b)).astype(np.float32)
     tex = psyn.smooth_texture(512, 512, seed=4, device="cpu")
     ours = psyn.render_plane_view(tex, 0.05, torch.as_tensor(R_c2w),
                                   torch.as_tensor(t_cw), K_SMALL, H, W)
@@ -174,37 +170,29 @@ def test_render_plane_view_matches_jax(t):
 
 
 def jax_bench_ate(n):
-    """The JAX package's replay over chip_smoke.py's end-to-end stream in
-    float32 on the CPU: init frame, update count, ATE (posyaw, all frames)."""
+    """The JAX package's replay over chip_smoke.py's end-to-end stream
+    (the port's make_stream on the CPU: the frames and IMU phase 5 replays)
+    in float32 on the CPU: init frame, update count, ATE (posyaw, all
+    frames)."""
     jax.config.update("jax_platforms", "cpu")
     from orcvio_tpu.config.core import FilterConfig
-    from orcvio_tpu.dataio.synthetic import (SimConfig, imu_measurements,
-                                             render_plane_view, smooth_texture,
-                                             trajectory_pose)
     from orcvio_tpu.eval.staged import make_e2e_replay, stage_sequence
     from orcvio_tpu.eval.trajectory import ate
     from orcvio_tpu.frontend.tracker import TrackerConfig, TrackerState
     from orcvio_tpu.math import quat
     from orcvio_tpu.vio import VioState
 
-    sim = SimConfig(n_frames=n, **cs.BENCH_SIM)
-    with jax.default_matmul_precision("highest"):
-        pose = jax.jit(jax.vmap(lambda t: trajectory_pose(sim, t)))
-        imu = jax.jit(jax.vmap(lambda t: imu_measurements(sim, t)))
-    size = cs.TEXTURE["size"]
-    tex = smooth_texture(size, size, seed=cs.TEXTURE["seed"])
-    tc = TrackerConfig(**cs.TRACKER, K=cs.CAM_K)
-    render = jax.jit(lambda R, t: render_plane_view(
-        tex, cs.TEXTURE["scale"], R, t, cs.CAM_K, tc.height, tc.width))
+    wc = pwriter.WriterConfig()
     t0 = time.perf_counter()
-    images, ft, it, ig, ia, im, gt_R, gt_p = cs.bench_stream(
-        n, lambda t: pose(jnp.asarray(t)), lambda t: imu(jnp.asarray(t)),
-        lambda R, t: render(jnp.asarray(R), jnp.asarray(t)))
+    st = pwriter.make_stream(psyn.SimConfig(n_frames=n, **cs.BENCH_SIM), wc,
+                             device="cpu")
+    images, ft, it, ig, ia, im = cs.bench_inputs(st)
     stream_s = time.perf_counter() - t0
 
+    tc = TrackerConfig(**cs.TRACKER, K=wc.cam.K)
     cfg = FilterConfig(**cs.BENCH_FILTER)
-    replay = jax.jit(make_e2e_replay(cfg, tc, np.asarray(cs.R_B2C_DOWN),
-                                     np.asarray(cs.T_C_B), jnp.float32))
+    replay = jax.jit(make_e2e_replay(cfg, tc, pwriter.R_B2C_DOWN,
+                                     np.asarray(wc.t_c_b), jnp.float32))
     t0 = time.perf_counter()
     _, outs = replay(TrackerState.create(tc, jnp.float32),
                      VioState.create(cfg, tc.capacity, jnp.float32),
@@ -213,7 +201,7 @@ def jax_bench_ate(n):
     replay_s = time.perf_counter() - t0
     from_rot = jax.vmap(quat.from_rotation)
     m = ate(ft, outs["p"], np.asarray(from_rot(jnp.asarray(outs["R"]))),
-            ft, gt_p, np.asarray(from_rot(jnp.asarray(gt_R))),
+            ft, st.gt_p, np.asarray(from_rot(jnp.asarray(st.gt_R))),
             alignment="posyaw")
     k0 = init_frame(outs["R"])
     return {"frames": n, "init_frame": k0,

@@ -1,7 +1,8 @@
 """The port's boundaries: no JAX, no reference package, no silent CPU runs.
 
 * No module of orcvio_tpu_torch, nor chip_smoke.py, imports jax, flax or
-  orcvio_tpu (by name or as a dotted submodule).
+  orcvio_tpu (by name or as a dotted submodule), nor cv2, yaml, PIL or
+  imageio, which the card's machine does not have.
 * Importing the whole port leaves jax out of sys.modules.
 * Entry points without device= run on CUDA, and raise where there is none.
 * Filter flags the port does not run yet raise NotImplementedError.
@@ -20,7 +21,11 @@ import torch
 
 import orcvio_tpu_torch
 from orcvio_tpu_torch.config.core import FilterConfig
-from orcvio_tpu_torch.dataio.synthetic import smooth_texture
+from orcvio_tpu_torch import run_vio
+from orcvio_tpu_torch.dataio.euroc_writer import (make_stream,
+                                                  write_euroc_dataset)
+from orcvio_tpu_torch.dataio.synthetic import (SimConfig, generate,
+                                               smooth_texture)
 from orcvio_tpu_torch.eval.staged import (make_e2e_replay, make_tracker_scan,
                                           stage_sequence)
 from orcvio_tpu_torch.filter.pipeline import build_chi2_table
@@ -37,7 +42,7 @@ from orcvio_tpu_torch.vio import VioState
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "orcvio_tpu")
+FORBIDDEN = ("jax", "flax", "orcvio_tpu", "cv2", "yaml", "PIL", "imageio")
 PORT_FILES = sorted((ROOT / "orcvio_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -78,7 +83,7 @@ FILTER_FLAGS = dict(sw_size=4, max_features=8, use_larvio=True,
                     if_zupt=True, feature_idp_dim=1, ekf_feature_cap=2)
 
 
-def test_entry_points_need_a_device():
+def test_entry_points_need_a_device(tmp_path):
     tc = TrackerConfig(height=64, width=96, capacity=8, pyramid_levels=2)
     cfg = FilterConfig(**FILTER_FLAGS)
     if torch.cuda.is_available():
@@ -89,6 +94,7 @@ def test_entry_points_need_a_device():
         assert VioState.create(cfg, 8).sinit.ref_uv.is_cuda
         assert build_chi2_table(cfg).is_cuda
         assert smooth_texture(16, 16).is_cuda
+        assert generate(SimConfig(n_frames=2)).frames.uvs.is_cuda
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3))
@@ -104,6 +110,20 @@ def test_entry_points_need_a_device():
         build_chi2_table(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         smooth_texture(16, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(SimConfig(n_frames=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_stream(SimConfig(n_frames=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        write_euroc_dataset(str(tmp_path), SimConfig(n_frames=2))
+    assert not any(tmp_path.iterdir())  # raised before writing anything
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_vio.run_image_sequence(
+            cfg, tc, lambda k: np.zeros((64, 96), np.float32), np.zeros(1),
+            np.zeros((1, 2)), np.zeros((1, 2, 3)), np.zeros((1, 2, 3)),
+            np.ones((1, 2), bool), np.eye(3), np.zeros(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_vio.main(["--euroc", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         stage_sequence(np.zeros((1, 64, 96), np.uint8), [0.0],
                        np.zeros((1, 2)), np.zeros((1, 2, 3)),
