@@ -35,7 +35,7 @@ Phases:
     sequence as the EuRoC writer makes it in memory, rendered on the card
     (300 frames, 60 of them static): init,
     finite poses, the ATE against the JAX package's on the same stream,
-    the launch count of every kernel; ms/frame over 3 replays of 100
+    the launch count of every kernel; ms/frame over 2 replays of 100
     flight frames after init; 20 of them under sync debug mode; 10 of them
     profiled;
  6. K4 against its plain version on the (P, K, H) the replay gave it (the
@@ -74,7 +74,25 @@ Phases:
     loop must initialize dynamically, and on whose init window at least
     one of 24 more RANSAC draws of the initializer must match the ground
     truth's gravity direction and speed (its scene is a plane, so a draw
-    is good only some of the time, in both packages).
+    is good only some of the time, in both packages);
+10. the filter's flag variants (orcvio_tpu_torch/eval/bench_setup.py:
+    VARIANTS: OrcVIO propagation left, right and Euler, left perturbation,
+    no ZUPT, pure MSCKF, 3-d inverse depth, FEJ, extrinsic and td, the qr,
+    chol and information update forms, the Joseph form), each through
+    vio_step on the first 40 frames of phase 5's stream (its static
+    start: init, then the filter), the tracker's frames computed once:
+    the init frame, the first frame with a non-finite pose, and the
+    position error at frame 39 within 1 mm of the JAX package's on the
+    same frames; the OrcVIO, FEJ and extrinsic-td variants once more in
+    float64 to frame 83, past the visual updates that start the flight
+    (frames 77-82), with updates made there and the position error within
+    5 mm of JAX's float64 one; K4 three times a filter frame (twice
+    without ZUPT, never under the information and Joseph forms), ms per
+    filter frame, and the host synchronisations in 8 filter frames
+    (recorded, not held); the qr and chol update forms on a full-rank
+    Jacobian against the direct one; K4 against its plain version at the
+    variants' new shapes (D = 142, D = 232, q = D = 172) and its times
+    there.
 
 Then the seconds each phase took.
 
@@ -88,7 +106,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -104,11 +121,14 @@ SHIFT = (1.3, -0.7)        # true flow, px per frame
 DEVICE = "cuda"
 FAILURES: list[str] = []
 
-# the front end at the bench configuration (bench.py:155-163)
-TRACKER = dict(height=480, width=752, pyramid_levels=3, capacity=200,
-               patch_size=15, klt_iters=10, grid_rows=8, grid_cols=10,
-               per_cell=3, min_distance=20.0, detect_every=2, equalize=True,
-               dist_model="radtan", dist_coeffs=(0.0, 0.0, 0.0, 0.0))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+try:
+    # the bench configuration, shared with scripts/flag_matrix.py
+    from orcvio_tpu_torch.eval.bench_setup import (
+        BENCH_FILTER, BENCH_SIM, TRACKER, VARIANTS, bench_inputs, gpu_line)
+except ImportError as e:  # chip_smoke.py without the checkout around it
+    sys.exit(f"chip_smoke: the port's package is missing: {e}")
+
 
 # The end-to-end stream: the bench sequence of scripts/make_bench_seq.py:31-36
 # (3 s static, then flight at 4 m over a textured ground plane) as the EuRoC
@@ -119,19 +139,8 @@ TRACKER = dict(height=480, width=752, pyramid_levels=3, capacity=200,
 # does for EuRoC epochs.
 E2E_FRAMES = 300
 E2E_WINDOW = 100  # flight frames after init per timed replay
-E2E_REPLAYS = 3  # timed replays of the window
+E2E_REPLAYS = 2  # timed replays of the window
 TRACKER_SCANS = 11  # timed scans of the known-flow stream
-BENCH_SIM = dict(frame_hz=20.0, imu_hz=200.0, static_time=3.0,
-                 ramp_time=1.5, height=4.0, radius=2.5, omega=0.5, seed=11,
-                 gyro_noise=0.0024, acc_noise=0.028)
-# the filter flags of the bench's config.yaml (euroc_writer.py:186-216, read
-# by config/yaml_io.py:load_reference_yaml: D = 22 + 6*20 + 30 = 172) and
-# the bench's IMU slab (bench.py:153)
-BENCH_FILTER = dict(imu_slab=16, use_larvio=True, use_left_perturbation=False,
-                    use_closed_form_cov_prop=True, if_zupt=True,
-                    observation_noise=0.008, init_cov_extrin_rot=3.0462e-8,
-                    init_cov_extrin_trans=9e-8, tri_translation_threshold=-1.0,
-                    max_grid_features=1, feature_idp_dim=1, ekf_feature_cap=30)
 # The JAX package's ATE on this stream: its make_e2e_replay in float32 on a
 # CPU (on the stream the port's make_stream makes on the CPU), posyaw
 # alignment over all frames, from `python tests/test_torch_e2e.py
@@ -186,6 +195,84 @@ JAX_EUROC = {
                 # from `python tests/test_torch_euroc.py --jax-dynamic-draws
                 # --draws 24`: good draws of 24 on each attempt window
                 "draws": 24, "draws_good": {"10": 7, "15": 4}}}
+# The flag variants (phase 10): every variant of
+# orcvio_tpu_torch/eval/bench_setup.py:VARIANTS over the first
+# FLAG_FRAMES frames of phase 5's stream (static: init on frame 20, then
+# the filter), the tracker's frames shared. The JAX package's figures on
+# the same frames, from `python tests/test_torch_flags_replay.py
+# --jax-flag-figures` (CPU, float32): the init frame, the position error at
+# the last frame after aligning the estimate's pose to the ground truth's
+# at init (pose_error_after_init), whether every pose stayed finite there,
+# the first frame whose pose is not finite, and for FLIGHT_VARIANTS the
+# figures of the filter in float64 at frame FLIGHT_FRAMES - 1. The chol
+# form's run turns non-finite: its Gram-Cholesky compression factors a
+# singular H^T H (ZUPT's 9 rows over 15 columns, and then the visual
+# updates, whose features do not see a shift of every clone) and gives
+# NaN, in both packages
+# (tests/test_torch_flags_update.py). Whether a float32 factorization of a
+# singular matrix fails depends on its rounding, so the port is held to a
+# first non-finite frame no earlier than JAX's; update_forms_check runs
+# the chol form on a Jacobian of full rank.
+FLAG_FRAMES = 40
+# The position error at frame FLAG_FRAMES - 1 is held within FLAG_POS_TOL_M
+# of JAX's, either way: the two packages' trackers draw RANSAC samples
+# differently, which moved no variant by more than 0.21 mm there on the
+# card; a variant whose flags were ignored would sit at the base's 5e-5 m
+# where JAX's OrcVIO runs drift 12 mm.
+FLAG_POS_TOL_M = 1e-3
+# The variants whose branches the static start barely runs (ZUPT fires on
+# every filter frame there, so the visual updates wait for the flight):
+# they run once more in float64 to frame FLIGHT_FRAMES - 1, past the
+# flight's first visual updates (frames 77-82), where they must have made
+# visual updates and sit within FLIGHT_POS_TOL_M of the JAX package's
+# float64 position error. In float32 the OrcVIO runs follow the rounding of
+# the closed-form mean's so3 operators there (ROADMAP section 3 item 18),
+# in both packages.
+FLIGHT_FRAMES = 84
+FLIGHT_VARIANTS = ("orcvio_prop", "orcvio_right", "orcvio_euler", "fej",
+                   "extrinsic_td")
+FLIGHT_POS_TOL_M = 5e-3
+# update_forms_check: the float64 forms' largest error on the card relative
+# to the CPU's direct form (rounding: some 1e-16 times S's condition, here
+# under 1e6; a NaN or a wrong factor is off by order 1)
+UPDATE_FORM_TOL = 1e-8
+JAX_FLAGS = {
+    "orcvio_prop": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 0.012163040062348595,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.009942967440902202, "n_upd": 53}},
+    "orcvio_right": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 0.012214709480242244,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.009052607987784008, "n_upd": 53}},
+    "orcvio_euler": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 0.012151087076893172,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.010017154687349497, "n_upd": 53}},
+    "left_perturb": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 5.2191539753323216e-05},
+    "no_zupt": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 0.008093320107320504},
+    "pure_msckf": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 0.00019792294119545077},
+    "hybrid_3d": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 0.0005447555563734777},
+    "fej": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 5.901595984403058e-05,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.009943659225960666, "n_upd": 53}},
+    "extrinsic_td": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 5.291955608016047e-05,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.009927249611310775, "n_upd": 53}},
+    "update_qr": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 5.214053861089626e-05},
+    "update_chol": {"init_frame": 20, "finite": False,
+        "first_nonfinite_frame": 22, "pos_err_m": None},
+    "update_information": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 5.1958419878893996e-05},
+    "joseph": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 5.047375781781183e-05}}
 K3_FRAMES = 3   # frame pairs of the known-flow stream for the K3 path
 RACE_REPS = 5   # timed passes of the race, as scripts/race_extract.py
 
@@ -198,13 +285,6 @@ def check(ok: bool, what: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
 def synthetic_stream(T, H, W, shift, seed=0, sigma=2.0):
@@ -227,19 +307,6 @@ def synthetic_stream(T, H, W, shift, seed=0, sigma=2.0):
     acc = np.tile([0.0, 0.0, 9.81], (T, S, 1))
     mask = np.ones((T, S), bool)
     return images.astype(np.uint8), t, imu_t, gyro, acc, mask
-
-
-def bench_inputs(st, slab=None):
-    """stage_sequence's inputs from a writer's in-memory stream
-    (dataio/euroc_writer.py:make_stream): (images (n, H, W) uint8,
-    frame_ts, imu_t, gyro, acc, mask), the IMU binned per frame as the
-    readers bin it (slab: default the bench's)."""
-    from orcvio_tpu_torch.dataio.euroc import EurocSequence, bin_imu_per_frame
-
-    slab = BENCH_FILTER["imu_slab"] if slab is None else slab
-    seq = EurocSequence(st.imu_ts, st.gyro, st.acc, st.frame_ts, [], None,
-                        None, None, None)
-    return (st.images, st.frame_ts, *bin_imu_per_frame(seq, slab))
 
 
 def tracked_flow(frames, K):
@@ -899,6 +966,272 @@ def dynamic_run(dev, wc, tmp, slab):
     return out
 
 
+def pose_error_after_init(p, R, gt_p, gt_R, k0, k):
+    """|position error| at frame k after aligning the estimate's pose at
+    init frame k0 to the ground truth's there: the drift since init, in
+    metres (the filter's world frame starts at the origin with an
+    unobservable yaw)."""
+    A = np.asarray(gt_R[k0]) @ np.asarray(R[k0]).T
+    drift = A @ (np.asarray(p[k]) - np.asarray(p[k0]))
+    return float(np.linalg.norm(drift - (gt_p[k] - gt_p[k0])))
+
+
+def flag_phase(dev, bench, wc):
+    """Phase 10: each flag variant of the filter through vio_step on the
+    card, float32, over the first FLAG_FRAMES frames of phase 5's stream,
+    then FLIGHT_VARIANTS in float64 over FLIGHT_FRAMES, the tracker's
+    frames shared (make_tracker_scan once). K4's inputs are kept per
+    (D, q) for its checks at the variants' new shapes. Returns (the
+    report's "flags" entry, {(D, q): (P, K, H)}, the tracker's K1 and K2
+    launches)."""
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.dataio.euroc_writer import R_B2C_DOWN
+    from orcvio_tpu_torch.eval.staged import make_tracker_scan, stage_sequence
+    from orcvio_tpu_torch.filter import update as filter_update
+    from orcvio_tpu_torch.filter.pipeline import FrameInput, build_chi2_table
+    from orcvio_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
+    from orcvio_tpu_torch.ops.cov_update import cov_update
+    from orcvio_tpu_torch.vio import VioState, vio_step
+
+    T, TF = FLAG_FRAMES, FLIGHT_FRAMES
+    etc = TrackerConfig(**TRACKER, K=wc.cam.K)
+    staged = stage_sequence(*(x[:TF] for x in bench_inputs(bench)),
+                            torch.float32, device=dev)
+    scan = make_tracker_scan(etc, R_B2C_DOWN, torch.float32, device=dev)
+    launch_counts(reset=True)
+    _, frames = scan(TrackerState.create(etc, torch.float32, seed=0,
+                                         device=dev), staged)
+    torch.cuda.synchronize()
+    tracker_launches = launch_counts()
+    frame = [FrameInput(*(x[k] for x in frames)) for k in range(TF)]
+    R_b2c = torch.as_tensor(R_B2C_DOWN, dtype=torch.float32, device=dev)
+    t_c_b = torch.as_tensor(wc.t_c_b, dtype=torch.float32, device=dev)
+
+    # K4's first inputs per (D, q) in each run, copied on the device; kept
+    # after the run where finite (no host read inside the run)
+    captured, pending = {}, {}
+
+    def capture(P, K, H, HP=None):
+        key = (P.shape[0], K.shape[1])
+        if key not in captured and key not in pending:
+            pending[key] = tuple(x.clone() for x in (P, K, H))
+        return cov_update(P, K, H, HP)
+
+    def pose_err(p, R, k0, k):
+        return (pose_error_after_init(p, R, bench.gt_p, bench.gt_R, k0, k)
+                if k0 is not None else float("nan"))
+
+    report = {}
+    filter_update.cov_update = capture
+    try:
+        for name, flags in VARIANTS.items():
+            cfg = FilterConfig(**{**BENCH_FILTER, **flags})
+            chi2 = build_chi2_table(cfg, torch.float32, dev)
+            vs = VioState.create(cfg, etc.capacity, torch.float32, device=dev)
+            vs = vs.replace(filter=vs.filter.replace(R_b2c=R_b2c, t_c_b=t_c_b))
+            jax_fig = JAX_FLAGS[name]
+            k0 = jax_fig["init_frame"]
+            outs = []
+            launch_counts(reset=True)
+
+            def run(ks):
+                nonlocal vs
+                for k in ks:
+                    vs, out = vio_step(cfg, vs, frame[k], chi2)
+                    outs.append(out)
+
+            # up to the frame after init (the last that reads the flag),
+            # then 10 timed filter frames, then the rest under torch's sync
+            # debug mode
+            run(range(0, k0 + 2))
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            run(range(k0 + 2, k0 + 12))
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / 10
+            syncs = find_syncs(lambda: run(range(k0 + 12, T)))
+            k4 = launch_counts()["cov_update"]
+            P_finite = bool(torch.isfinite(vs.filter.P).all())
+            for key, xs in pending.items():
+                if all(bool(torch.isfinite(x).all()) for x in xs):
+                    captured[key] = xs
+            pending.clear()
+
+            p = torch.stack([o.p for o in outs]).double().cpu().numpy()
+            R = torch.stack([o.R for o in outs]).double().cpu().numpy()
+            v = torch.stack([o.v for o in outs]).double().cpu().numpy()
+            moved = np.abs(R - np.eye(3)).reshape(T, -1).max(1) > 0
+            ki = int(np.argmax(moved)) if moved.any() else None
+            n_filter = 0 if ki is None else T - 1 - ki
+            ok = (np.isfinite(p).all(1) & np.isfinite(R).reshape(T, -1).all(1)
+                  & np.isfinite(v).all(1))
+            bad = None if ok.all() else int(np.argmin(ok))
+            finite = bad is None and P_finite
+            err = pose_err(p, R, ki, T - 1)
+            # K4 in the stacked, ZUPT (where ZUPT is on) and last-chance
+            # updates, none under the information and Joseph forms
+            per_frame = (0 if cfg.update_form == "information"
+                         or cfg.joseph_form else 2 + cfg.if_zupt)
+            jbad = jax_fig["first_nonfinite_frame"]
+            jbad = jbad if jbad is not None and jbad < T else None
+            check(ki == k0, f"flags {name}: init on frame {ki} == {k0} (JAX)")
+            if jbad is None:
+                check(bad is None, f"flags {name}: every pose finite, as "
+                      "JAX's")
+            else:
+                check(bad is not None and bad >= jbad,
+                      f"flags {name}: first frame with a non-finite pose "
+                      f"{bad}, none before JAX's {jbad}")
+            if jax_fig["finite"]:
+                jerr = jax_fig["pos_err_m"]
+                check(finite, f"flags {name}: p, R, v and P finite")
+                check(bool(abs(err - jerr) <= FLAG_POS_TOL_M),
+                      f"flags {name}: position error at frame {T - 1} "
+                      f"{err:.6f} m within {FLAG_POS_TOL_M} m of JAX's "
+                      f"{jerr:.6f}")
+            else:  # the JAX package's run turns non-finite on this stream
+                check(not finite,
+                      f"flags {name}: non-finite as the JAX package's run")
+            check(k4 == per_frame * n_filter,
+                  f"flags {name}: K4 launches {k4} == {per_frame} x "
+                  f"{n_filter} filter frames")
+            report[name] = {
+                "init_frame": ki, "jax_init_frame": k0,
+                "pos_err_m": err, "jax_pos_err_m": jax_fig["pos_err_m"],
+                "finite": finite, "jax_finite": jax_fig["finite"],
+                "first_nonfinite_frame": bad,
+                "jax_first_nonfinite_frame": jbad,
+                "k4_launches": k4, "filter_frames": n_filter,
+                "k4_per_filter_frame": k4 / max(n_filter, 1),
+                "syncs": len(syncs), "sync_sites": sorted(set(syncs))[:6],
+                "sync_frames": T - k0 - 12, "ms_per_filter_frame": ms,
+                "n_upd_total": int(sum(int(o.n_update_features)
+                                       for o in outs)),
+                "zupt_frames": int(sum(bool(o.zupt) for o in outs)),
+                "D": cfg.state_dim}
+            print(f"flags {name}: " + json.dumps(report[name]), flush=True)
+    finally:
+        filter_update.cov_update = cov_update
+
+    # FLIGHT_VARIANTS once more in float64, on into the flight, where the
+    # visual updates run (float32 OrcVIO runs follow the rounding of the
+    # closed-form mean there: ROADMAP section 3 item 18)
+    imu64 = stage_sequence(*(x[:TF] for x in bench_inputs(bench)),
+                           torch.float64, device=dev)
+    frame64 = [FrameInput(imu64.frame_ts[k], imu64.imu_t[k],
+                          imu64.imu_gyro[k], imu64.imu_acc[k],
+                          imu64.imu_mask[k], frames.fids[k],
+                          frames.uvs[k].double(), frames.uv_vels[k].double(),
+                          frames.meas_mask[k]) for k in range(TF)]
+    for name in FLIGHT_VARIANTS:
+        cfg = FilterConfig(**{**BENCH_FILTER, **VARIANTS[name]})
+        chi2 = build_chi2_table(cfg, torch.float64, dev)
+        vs = VioState.create(cfg, etc.capacity, torch.float64, device=dev)
+        vs = vs.replace(filter=vs.filter.replace(R_b2c=R_b2c.double(),
+                                                 t_c_b=t_c_b.double()))
+        jf = JAX_FLAGS[name]["flight"]
+        launch_counts(reset=True)
+        outs = []
+        for k in range(TF):
+            vs, out = vio_step(cfg, vs, frame64[k], chi2)
+            outs.append(out)
+        k4f = launch_counts()["cov_update"]
+        p = torch.stack([o.p for o in outs]).cpu().numpy()
+        R = torch.stack([o.R for o in outs]).cpu().numpy()
+        moved = np.abs(R - np.eye(3)).reshape(TF, -1).max(1) > 0
+        ki = int(np.argmax(moved)) if moved.any() else None
+        finite_f = bool(np.isfinite(p).all() and np.isfinite(R).all()
+                        and torch.isfinite(vs.filter.P).all())
+        err_f = pose_err(p, R, ki, TF - 1)
+        n_upd_f = int(sum(int(o.n_update_features) for o in outs[T:]))
+        n_filter = 0 if ki is None else TF - 1 - ki
+        per_frame = 2 + cfg.if_zupt
+        check(ki == jf["init_frame"] and finite_f,
+              f"flags {name} float64: init on frame {ki} == "
+              f"{jf['init_frame']} (JAX), finite to frame {TF - 1}")
+        check(n_upd_f > 0 and jf["n_upd"] > 0,
+              f"flags {name} float64: {n_upd_f} visual updates in frames "
+              f"{T}-{TF - 1} (JAX {jf['n_upd']})")
+        check(bool(abs(err_f - jf["pos_err_m"]) <= FLIGHT_POS_TOL_M),
+              f"flags {name} float64: position error at frame {TF - 1} "
+              f"{err_f:.6f} m within {FLIGHT_POS_TOL_M} m of JAX's "
+              f"{jf['pos_err_m']:.6f}")
+        check(k4f == per_frame * n_filter,
+              f"flags {name} float64: K4 launches {k4f} == {per_frame} x "
+              f"{n_filter} filter frames")
+        report[name]["flight"] = {
+            "dtype": "float64", "frames": TF, "init_frame": ki,
+            "pos_err_m": err_f, "jax_pos_err_m": jf["pos_err_m"],
+            "finite": finite_f, "n_upd": n_upd_f, "jax_n_upd": jf["n_upd"],
+            "k4_launches": k4f,
+            "zupt_frames": int(sum(bool(o.zupt) for o in outs[T:]))}
+        print(f"flags {name} flight: " + json.dumps(report[name]["flight"]),
+              flush=True)
+    check(tracker_launches["window_gather"] == TF
+          and tracker_launches["lk_level"] == 4 * TF,
+          f"flags: tracker launches {tracker_launches} == K1 1*T, K2 4*T "
+          f"(T = {TF})")
+    return report, captured, tracker_launches
+
+
+def update_forms_check(dev, seed=5):
+    """The qr and chol update forms on the card, where a Jacobian has full
+    column rank (a seeded normal (444, D), the stacked update's row count;
+    the filter's own stacked Jacobians leave the clones' common shift
+    unobserved, so the chol form's Gram matrix is singular there):
+    apply_ekf_update under each form, float64 and float32, at the bench's
+    D = 172 with a seeded P (eigenvalues 1e-4 to 4e-3), against the
+    "direct" form in float64 on the CPU (the forms are equal in exact
+    arithmetic). float64 must agree within UPDATE_FORM_TOL (relative to the
+    largest entry of P and of dx); float32 is reported. Returns the
+    relative errors per dtype and form."""
+    import dataclasses
+
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.filter.state import FilterState
+    from orcvio_tpu_torch.filter.update import apply_ekf_update
+
+    cfg = FilterConfig(**BENCH_FILTER)
+    D = cfg.state_dim
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(D, D)) / np.sqrt(D)
+    P = 1e-3 * (A @ A.T) + 1e-4 * np.eye(D)
+    H = rng.normal(size=(444, D))
+    r = 0.008 * rng.normal(size=444)
+
+    def update(form, dtype, device):
+        st = FilterState.create(cfg, dtype, device=device)
+        st = st.replace(P=torch.as_tensor(P, dtype=dtype, device=device))
+        st, dx = apply_ekf_update(
+            dataclasses.replace(cfg, update_form=form), st,
+            torch.as_tensor(H, dtype=dtype, device=device),
+            torch.as_tensor(r, dtype=dtype, device=device))
+        return st.P.double().cpu().numpy(), dx.double().cpu().numpy()
+
+    P_ref, dx_ref = update("direct", torch.float64, "cpu")
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        for form in ("direct", "qr", "chol"):
+            P_out, dx = update(form, dtype, dev)
+            errs[f"{form} {str(dtype)[6:]}"] = {
+                "P": float(np.abs(P_out - P_ref).max() / np.abs(P_ref).max()),
+                "dx": float(np.abs(dx - dx_ref).max()
+                            / np.abs(dx_ref).max())}
+    for form in ("direct", "qr", "chol"):
+        e = errs[f"{form} float64"]
+        check(bool(max(e.values()) <= UPDATE_FORM_TOL),
+              f"update form {form} on the card, float64, full-rank H (444, "
+              f"{D}): P, dx within {UPDATE_FORM_TOL} of the CPU's direct "
+              f"form ({e['P']:.2e}, {e['dx']:.2e})")
+    return errs
+
+
 def rotations_to_quat(R):
     """[x y z w] quaternions of (T, 3, 3) rotations (numpy)."""
     import torch
@@ -922,8 +1255,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root))
     try:
         from orcvio_tpu_torch import no_tf32
         from orcvio_tpu_torch.config.core import FilterConfig
@@ -1635,6 +1966,38 @@ def main() -> int:
                     euroc[run]["launches"][kern["name"]]
 
     lap("9 EuRoC path")
+    # ---------------- 10. the flag variants ----------------
+    flags, k4_in, flag_tracker = flag_phase(dev, bench, wc)
+    form_errs = update_forms_check(dev)
+    main_shapes = {(172, 444), (172, 384), (172, 9)}
+    new_shapes = [(142, 384), (232, 444), (172, 172)]
+    check(all(x in k4_in for x in new_shapes),
+          f"K4 saw the variants' new shapes (D, q) {new_shapes}: "
+          f"{sorted(k4_in)}")
+    k4_flag_err, k4_flag_ratio = k4_check(
+        [(f"flags D={D} q={q}", *k4_in[(D, q)])
+         for D, q in sorted(k4_in) if (D, q) not in main_shapes])
+    k4_flag_times = {f"D={D} q={q}": {
+        k: v for k, v in k4_times(*k4_in[(D, q)]).items()
+        if k in ("kernel_ms", "library_ms", "addmm_ms", "bound_ms")}
+        for D, q in new_shapes if (D, q) in k4_in}
+    emit({"flags": {"frames": FLAG_FRAMES, "flight_frames": FLIGHT_FRAMES,
+                    "variants": flags, "update_forms_rel_err": form_errs,
+                    "tracker_launches": flag_tracker,
+                    "k4_max_abs_err": k4_flag_err,
+                    "k4_max_share_of_rounding_bound_f32": k4_flag_ratio,
+                    "k4_times": k4_flag_times}})
+    for kern in kernels:
+        if kern["name"] == "cov_update":
+            kern["launches_flags"] = sum(
+                v["k4_launches"] + v.get("flight", {}).get("k4_launches", 0)
+                for v in flags.values())
+            kern["by_shape_flags"] = k4_flag_times
+            kern["max_abs_err_by_case"].update(k4_flag_err)
+        elif kern["name"] in flag_tracker:
+            kern["launches_flags"] = flag_tracker[kern["name"]]
+
+    lap("10 flag variants")
     emit({"phase_seconds": laps, "total_s": sum(laps.values())})
     for kern in kernels:  # None where the library was built before this run
         kern["ptxas"] = ptxas.get(Path(kern["source"]).stem)

@@ -4,12 +4,9 @@ Counterpart of ``orcvio_tpu/config/core.py`` (reference: loadParameters,
 orcvio.cpp:62-415): the same frozen dataclass, field for field, with the
 same defaults. Fields select code paths and fix capacities.
 
-The port runs the flags of the bench configuration
-(``dataio/euroc_writer.py:write_reference_config``): LARVIO propagation
-with the closed-form covariance, no left perturbation, ZUPT, 1-d
-inverse-depth EKF features, the "direct" update. ``require_supported``
-raises on the flag branches not ported yet (ROADMAP item 12) instead of
-running something else.
+``require_supported`` raises on the flag branches not ported yet (the IMU
+intrinsics and Schmidt nuisance states, ROADMAP item 12 part 2) instead
+of running something else.
 """
 from __future__ import annotations
 
@@ -140,24 +137,14 @@ class FilterConfig:
 
 
 def require_supported(cfg: FilterConfig) -> None:
-    """Raise NotImplementedError on a flag branch the port does not run yet.
-
-    The port runs the bench flags; the other branches are ROADMAP item 12.
-    """
+    """Raise NotImplementedError on a flag branch the port does not run yet:
+    the IMU intrinsics and Schmidt nuisance states (ROADMAP item 12 part
+    2). Every other flag of the filter runs."""
     bad = [name for name, on in (
-        ("use_larvio=False (the orcvio_prop Phi forms)", not cfg.use_larvio),
-        ("use_left_perturbation", cfg.use_left_perturbation),
-        ("if_fej", cfg.if_fej),
         ("calib_imu", cfg.calib_imu),
-        ("estimate_extrinsic", cfg.estimate_extrinsic),
-        ("estimate_td", cfg.estimate_td),
         ("use_schmidt / nuisance_cap", cfg.use_schmidt or cfg.nuisance_cap),
-        ("joseph_form", cfg.joseph_form),
-        (f"update_form={cfg.update_form!r}", cfg.update_form != "direct"),
-        (f"feature_idp_dim={cfg.feature_idp_dim} with EKF features",
-         cfg.ekf_feature_cap > 0 and cfg.feature_idp_dim != 1),
     ) if on]
     if bad:
         raise NotImplementedError(
             "orcvio_tpu_torch does not port these filter flags yet (ROADMAP "
-            "item 12): " + ", ".join(bad))
+            "item 12 part 2): " + ", ".join(bad))

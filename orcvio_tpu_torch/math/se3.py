@@ -59,3 +59,27 @@ def project_image_df(x):
 def to_homogeneous(pts):
     """(..., 3) -> (..., 4)."""
     return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
+def get_cam_wrt_imu_se3_jacobian(R_b2c, t_c_b, R_w2c, t_b_w,
+                                 use_left_perturbation: bool):
+    """(..., 6, 6) d(camera twist) / d(imu clone error). Ref:
+    se3_ops.hpp:531.
+
+    Maps the clone error e = [dtheta, dp] (p' = p + dp; R' = exp(dtheta) R
+    for the left flag, R exp(dtheta) for the right) to the camera twist
+    xi_c = [rho, phi] with wTc' = exp(xi_c) wTc (left) or wTc exp(xi_c)
+    (right), wTc = wTi iTc. Inputs broadcast over their leading dims."""
+    batch = torch.broadcast_shapes(R_b2c.shape[:-2], t_c_b.shape[:-1],
+                                   R_w2c.shape[:-2], t_b_w.shape[:-1])
+    eye = torch.eye(3, dtype=R_w2c.dtype, device=R_w2c.device).expand(
+        batch + (3, 3))
+    if use_left_perturbation:
+        top = [so3.hat(t_b_w).expand(batch + (3, 3)), eye]
+        bottom = [eye, torch.zeros_like(eye)]
+    else:
+        top = [(-R_b2c @ so3.hat(t_c_b)).expand(batch + (3, 3)),
+               R_w2c.expand(batch + (3, 3))]
+        bottom = [R_b2c.expand(batch + (3, 3)), torch.zeros_like(eye)]
+    return torch.cat([torch.cat(top, dim=-1), torch.cat(bottom, dim=-1)],
+                     dim=-2)

@@ -1,5 +1,5 @@
-"""K4's device time at the end-to-end replay's three shapes, for this
-checkout or another one.
+"""K4's device time at the end-to-end replay's three shapes and at the
+flag variants' new ones, for this checkout or another one.
 
     python orcvio_tpu_torch/scripts/k4_shapes.py [--root DIR]
 
@@ -7,7 +7,10 @@ Times ``cov_update(P, K, H, HP)`` of the ``orcvio_tpu_torch`` package under
 DIR (default: the checkout that holds this script), with H P given as
 ``filter/update.py:apply_ekf_update`` passes it, at D = 172 and q = 444,
 384 and 9 (the stacked, last-chance and ZUPT updates, one of each a filter
-frame), float32, on seeded random inputs; beside it the plain version
+frame), and at the flag variants' (D, q) = (142, 384) (pure MSCKF's
+stacked update), (232, 444) (3-d inverse depth's) and (172, 172) (the qr
+and chol forms'), float32, on seeded random inputs; beside it the plain
+version
 ``cov_update_plain(P, K, H, HP)`` and ``torch.addmm(P, K, HP, alpha=-1)``,
 the one cuBLAS call that does most of it. Each time is the median of 30
 CUDA-event timed calls with the stream kept busy, as chip_smoke.py times
@@ -26,7 +29,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SHAPES = ((172, 444), (172, 384), (172, 9))
+BENCH_SHAPES = ((172, 444), (172, 384), (172, 9))
+SHAPES = BENCH_SHAPES + ((142, 384), (232, 444), (172, 172))
 
 
 def _event_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -65,14 +69,14 @@ def main() -> int:
                    for x in (A @ A.T / D, rng.normal(size=(D, q)) * 0.1,
                              rng.normal(size=(q, D)) * 0.1))
         HP = H @ P
-        out[str(q)] = {
+        out[f"{D},{q}"] = {
             "kernel_ms": _event_ms(lambda: cov_update(P, K, H, HP)),
             "plain_ms": _event_ms(lambda: cov_update_plain(P, K, H, HP)),
             "addmm_ms": _event_ms(lambda: torch.addmm(P, K, HP, alpha=-1))}
     print(json.dumps({"k4_shapes": {
-        "root": args.root, "D": 172, "by_q": out,
-        "kernel_ms_per_filter_frame": sum(v["kernel_ms"]
-                                          for v in out.values())}}),
+        "root": args.root, "by_shape": out,
+        "kernel_ms_per_filter_frame": sum(out[f"{D},{q}"]["kernel_ms"]
+                                          for D, q in BENCH_SHAPES)}}),
           flush=True)
     return 0
 

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import orcvio_tpu_torch
-from orcvio_tpu_torch.config.core import FilterConfig
+from orcvio_tpu_torch.config.core import FilterConfig, require_supported
 from orcvio_tpu_torch import run_vio
 from orcvio_tpu_torch.dataio.euroc_writer import (make_stream,
                                                   write_euroc_dataset)
@@ -132,12 +132,25 @@ def test_entry_points_need_a_device(tmp_path):
 
 def test_unported_filter_flags_raise():
     tc = TrackerConfig(height=64, width=96, capacity=8, pyramid_levels=2)
-    for flag in ({"use_larvio": False}, {"use_left_perturbation": True},
-                 {"joseph_form": True}, {"update_form": "qr"},
-                 {"if_fej": True}, {"estimate_td": True}):
+    for flag in ({"calib_imu": True}, {"use_schmidt": True},
+                 {"nuisance_cap": 2}, {"use_schmidt": True, "nuisance_cap": 2}):
         cfg = FilterConfig(**{**FILTER_FLAGS, **flag})
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP item 12 part 2"):
             make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3), device="cpu")
+
+
+@pytest.mark.parametrize("flags", [{}, FILTER_FLAGS], ids=["jax_defaults",
+                                                            "bench"])
+def test_ported_filter_flags_are_supported(flags):
+    """FilterConfig() (the JAX package's defaults: OrcVIO propagation, left
+    perturbation, Euler Phi, 3-d inverse depth) and the bench flags pass
+    require_supported and build a replay."""
+    cfg = FilterConfig(**flags)
+    require_supported(cfg)
+    tc = TrackerConfig(height=64, width=96, capacity=8, pyramid_levels=2)
+    assert callable(make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3),
+                                    device="cpu"))
 
 
 def test_cpu_tensors_do_not_launch_kernels(monkeypatch):
