@@ -78,21 +78,26 @@ Phases:
 10. the filter's flag variants (orcvio_tpu_torch/eval/bench_setup.py:
     VARIANTS: OrcVIO propagation left, right and Euler, left perturbation,
     no ZUPT, pure MSCKF, 3-d inverse depth, FEJ, extrinsic and td, the qr,
-    chol and information update forms, the Joseph form), each through
-    vio_step on the first 40 frames of phase 5's stream (its static
-    start: init, then the filter), the tracker's frames computed once:
-    the init frame, the first frame with a non-finite pose, and the
-    position error at frame 39 within 1 mm of the JAX package's on the
-    same frames; the OrcVIO, FEJ and extrinsic-td variants once more in
-    float64 to frame 83, past the visual updates that start the flight
-    (frames 77-82), with updates made there and the position error within
-    5 mm of JAX's float64 one; K4 three times a filter frame (twice
-    without ZUPT, never under the information and Joseph forms), ms per
+    chol and information update forms, the Joseph form, the IMU
+    intrinsics, Schmidt nuisance states in both semantics, intrinsics
+    and Schmidt together), each through vio_step on the first 40 frames
+    of phase 5's stream (its static start: init, then the filter), the
+    tracker's frames computed once: the init frame, the first frame with
+    a non-finite pose, and the position error at frame 39 within 1 mm of
+    the JAX package's on the same frames; the OrcVIO, FEJ, extrinsic-td,
+    intrinsic and Schmidt variants once more in float64 to frame 83, past
+    the visual updates that start the flight (frames 77-82), with updates
+    made there, a clone demoted under Schmidt, and the position error
+    within 5 mm of JAX's float64 one; K4 three times a filter frame
+    (twice without ZUPT, never under the information and Joseph forms
+    unless Schmidt states make them the qr and plain forms), ms per
     filter frame, and the host synchronisations in 8 filter frames
     (recorded, not held); the qr and chol update forms on a full-rank
     Jacobian against the direct one; K4 against its plain version at the
-    variants' new shapes (D = 142, D = 232, q = D = 172) and its times
-    there.
+    variants' new shapes (D = 142, D = 232, q = D = 172; D = 196, and
+    D = 208 and 232 with the nuisance block [nb:, nb:] kept, nb = 172 and
+    196), on seeded inputs at those D's with nb = D - 36 in float32 and
+    float64 (P's block kept bit for bit), and its times there.
 
 Then the seconds each phase took.
 
@@ -225,13 +230,25 @@ FLAG_POS_TOL_M = 1e-3
 # they run once more in float64 to frame FLIGHT_FRAMES - 1, past the
 # flight's first visual updates (frames 77-82), where they must have made
 # visual updates and sit within FLIGHT_POS_TOL_M of the JAX package's
-# float64 position error. In float32 the OrcVIO runs follow the rounding of
-# the closed-form mean's so3 operators there (ROADMAP section 3 item 18),
-# in both packages.
+# float64 position error (the card's runs sat 1.9e-5 to 2.9e-5 m from it:
+# its tracker's float32 rounding; the limit is 17 times that). In float32
+# the OrcVIO runs follow the rounding of the closed-form mean's so3
+# operators there (ROADMAP section 3 item 18), in both packages. The
+# Schmidt variants must also demote a clone to a nuisance slot by then:
+# JAX's float64 runs first do on frame 78, once the flight's first
+# promoted features outlive their anchor clones. Their covariance at frame
+# FLIGHT_FRAMES - 1 must hold JAX's Schmidt blocks (schmidt_blocks) within
+# SCHMIDT_BLOCK_RTOL. The JAX package's own float64 run, broken on
+# purpose, moves them by far more: without the textbook form's mirror of
+# the cross block (its update halved) cross_fro +23 % and nn_fro +20 %;
+# with the nuisance block updated nn_fro -17 %; its position error moves
+# 2.9e-5 m and 1.8e-6 m, inside FLIGHT_POS_TOL_M.
 FLIGHT_FRAMES = 84
 FLIGHT_VARIANTS = ("orcvio_prop", "orcvio_right", "orcvio_euler", "fej",
-                   "extrinsic_td")
-FLIGHT_POS_TOL_M = 5e-3
+                   "extrinsic_td", "calib_imu", "schmidt", "schmidt_ref",
+                   "calib_schmidt")
+FLIGHT_POS_TOL_M = 5e-4
+SCHMIDT_BLOCK_RTOL = 1e-2
 # update_forms_check: the float64 forms' largest error on the card relative
 # to the CPU's direct form (rounding: some 1e-16 times S's condition, here
 # under 1e6; a NaN or a wrong factor is off by order 1)
@@ -272,7 +289,32 @@ JAX_FLAGS = {
     "update_information": {"init_frame": 20, "finite": True,
         "first_nonfinite_frame": None, "pos_err_m": 5.1958419878893996e-05},
     "joseph": {"init_frame": 20, "finite": True,
-        "first_nonfinite_frame": None, "pos_err_m": 5.047375781781183e-05}}
+        "first_nonfinite_frame": None, "pos_err_m": 5.047375781781183e-05},
+    "calib_imu": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 0.00020152583072533957,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.02033323905626841, "n_upd": 52}},
+    "schmidt": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 5.259912429676082e-05,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.009954358456802948, "n_upd": 53,
+                   "first_demotion_frame": 78,
+                   "cross_fro": 0.0022202236972906895,
+                   "nn_fro": 0.0011682563760197521}},
+    "schmidt_ref": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 5.2191539753323216e-05,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.009954358456802948, "n_upd": 53,
+                   "first_demotion_frame": 78,
+                   "cross_fro": 0.00222022369729069,
+                   "nn_fro": 0.0011682563760197521}},
+    "calib_schmidt": {"init_frame": 20, "finite": True,
+        "first_nonfinite_frame": None, "pos_err_m": 0.00034372606143225407,
+        "flight": {"init_frame": 20,
+                   "pos_err_m": 0.020401399111774864, "n_upd": 52,
+                   "first_demotion_frame": 78,
+                   "cross_fro": 0.005472135520824823,
+                   "nn_fro": 0.0026937460045343632}}}
 K3_FRAMES = 3   # frame pairs of the known-flow stream for the K3 path
 RACE_REPS = 5   # timed passes of the race, as scripts/race_extract.py
 
@@ -565,59 +607,68 @@ def k4_inputs(D, q, seed, dtype, dev):
 
 def k4_check(cases):
     """K4 against its plain version, H P given as on the main path, on
-    each (name, P, K, H): within the rounding bound and exactly symmetric.
-    Returns ({name: max |kernel - plain|}, the largest share of the bound
-    in float32)."""
+    each (name, P, K, H) or (name, P, K, H, nb): within the rounding bound
+    and exactly symmetric; with nb < D, the block [nb:, nb:] equal to P's
+    bit for bit. Returns ({name: max |kernel - plain|}, the largest share
+    of the bound in float32)."""
     import torch
 
     from orcvio_tpu_torch.ops.cov_update import cov_update, cov_update_plain
 
     k4_err, k4_ratio = {}, 0.0
-    for name, P, K, H in cases:
+    for name, P, K, H, *rest in cases:
+        nb = rest[0] if rest else P.shape[0]
         HP = H @ P
-        a = cov_update(P, K, H, HP)
-        p = cov_update_plain(P, K, H, HP)
+        a = cov_update(P, K, H, HP, nb)
+        p = cov_update_plain(P, K, H, HP, nb)
         err = (a - p).abs()
         tol = k4_tolerance(P, K, HP, p)
         ratio = float(torch.where(err == 0, 0.0, err.double() / tol).max())
         k4_err[name] = float(err.max())
         if P.dtype == torch.float32:
             k4_ratio = max(k4_ratio, ratio)
-        check(ratio <= 1.0 and bool(torch.equal(a, a.T))
+        kept = bool(torch.equal(a[nb:, nb:], P[nb:, nb:]))
+        check(ratio <= 1.0 and bool(torch.equal(a, a.T)) and kept
               and bool(torch.isfinite(a).all()),
-              f"K4 {name} D={P.shape[0]} q={K.shape[1]}: max |kernel - "
-              f"plain| {float(err.max()):.2e}, {ratio:.3f} of the rounding "
-              f"bound; exactly symmetric")
+              f"K4 {name} D={P.shape[0]} q={K.shape[1]} nb={nb}: max "
+              f"|kernel - plain| {float(err.max()):.2e}, {ratio:.3f} of the "
+              f"rounding bound; exactly symmetric; P[nb:, nb:] kept bit for "
+              f"bit")
     return k4_err, k4_ratio
 
 
-def k4_times(P, K, H):
-    """K4's times at (P, K, H). The function the main path runs takes H P
-    given (apply_ekf_update has it for S and K already): the kernel
-    ("kernel_ms"), its plain version ("library_ms": cuBLAS products and
-    elementwise ops), and the one cuBLAS call that does most of it,
-    torch.addmm(P, K, HP, alpha=-1) ("addmm_ms"). Beside them the whole
-    function with H P computed first, kernel and plain ("with_hp_*"). The
-    bound counts 2 D^2 q FLOP with H P given, 4 D^2 q without."""
+def k4_times(P, K, H, nb=None):
+    """K4's times at (P, K, H), the block [nb:, nb:] kept where nb < D.
+    The function the main path runs takes H P given (apply_ekf_update has
+    it for S and K already): the kernel ("kernel_ms"), its plain version
+    ("library_ms": cuBLAS products and elementwise ops), and the one
+    cuBLAS call that does most of it, torch.addmm(P, K, HP, alpha=-1)
+    ("addmm_ms", the whole product). Beside them the whole function with
+    H P computed first, kernel and plain ("with_hp_*"). The bound counts
+    2 q (D^2 - (D - nb)^2) FLOP with H P given (the kept block needs no
+    products), twice that without, on 2 D^2 + 2 D q elements."""
     import torch
 
     from orcvio_tpu_torch.ops.cov_update import cov_update, cov_update_plain
 
     HP = H @ P
     D, q = K.shape
-    nbytes = 4 * (2 * D * D + 2 * D * q)
-    out = {"kernel_ms": time_ms(lambda: cov_update(P, K, H, HP)),
-           "library_ms": time_ms(lambda: cov_update_plain(P, K, H, HP)),
+    nb = D if nb is None else nb
+    nbytes = P.element_size() * (2 * D * D + 2 * D * q)
+    ops = 2 * q * (D * D - (D - nb) ** 2)
+    out = {"kernel_ms": time_ms(lambda: cov_update(P, K, H, HP, nb)),
+           "library_ms": time_ms(lambda: cov_update_plain(P, K, H, HP, nb)),
            "addmm_ms": time_ms(lambda: torch.addmm(P, K, HP, alpha=-1)),
-           "kernel_call_ms": time_ms(lambda: cov_update(P, K, H, HP),
+           "kernel_call_ms": time_ms(lambda: cov_update(P, K, H, HP, nb),
                                      preload=False),
-           "with_hp_ms": time_ms(lambda: cov_update(P, K, H)),
-           "with_hp_plain_ms": time_ms(lambda: cov_update_plain(P, K, H)),
-           "with_hp_call_ms": time_ms(lambda: cov_update(P, K, H),
+           "with_hp_ms": time_ms(lambda: cov_update(P, K, H, nb=nb)),
+           "with_hp_plain_ms": time_ms(lambda: cov_update_plain(P, K, H,
+                                                                nb=nb)),
+           "with_hp_call_ms": time_ms(lambda: cov_update(P, K, H, nb=nb),
                                       preload=False),
-           "bytes": nbytes, "ops": 2 * D * D * q}
-    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, 2 * D * D * q)
-    out["with_hp_bound_ms"] = bound_ms(nbytes, 4 * D * D * q)[0]
+           "bytes": nbytes, "ops": ops, "nb": nb}
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops)
+    out["with_hp_bound_ms"] = bound_ms(nbytes, ops + 2 * D * D * q)[0]
     return out
 
 
@@ -684,6 +735,16 @@ def launch_counts(reset=False):
 def first_true(flags):
     flags = np.asarray(flags)
     return int(np.argmax(flags)) if flags.any() else None
+
+
+def schmidt_blocks(P, nuisance_cap):
+    """Frobenius norms of a Schmidt filter's covariance blocks: the
+    active-nuisance cross block P[:nb, nb:] and the nuisance block
+    P[nb:, nb:], nb = D - 6 nuisance_cap."""
+    P = np.asarray(P, np.float64)
+    nb = P.shape[0] - 6 * nuisance_cap
+    return {"cross_fro": float(np.linalg.norm(P[:nb, nb:])),
+            "nn_fro": float(np.linalg.norm(P[nb:, nb:]))}
 
 
 def check_euroc_run(name, summary, tum_path, jax_fig, launches, frames):
@@ -1009,15 +1070,15 @@ def flag_phase(dev, bench, wc):
     R_b2c = torch.as_tensor(R_B2C_DOWN, dtype=torch.float32, device=dev)
     t_c_b = torch.as_tensor(wc.t_c_b, dtype=torch.float32, device=dev)
 
-    # K4's first inputs per (D, q) in each run, copied on the device; kept
-    # after the run where finite (no host read inside the run)
+    # K4's first inputs per (D, q, nb) in each run, copied on the device;
+    # kept after the run where finite (no host read inside the run)
     captured, pending = {}, {}
 
-    def capture(P, K, H, HP=None):
-        key = (P.shape[0], K.shape[1])
+    def capture(P, K, H, HP=None, nb=None):
+        key = (P.shape[0], K.shape[1], P.shape[0] if nb is None else nb)
         if key not in captured and key not in pending:
             pending[key] = tuple(x.clone() for x in (P, K, H))
-        return cov_update(P, K, H, HP)
+        return cov_update(P, K, H, HP, nb)
 
     def pose_err(p, R, k0, k):
         return (pose_error_after_init(p, R, bench.gt_p, bench.gt_R, k0, k)
@@ -1072,10 +1133,7 @@ def flag_phase(dev, bench, wc):
             bad = None if ok.all() else int(np.argmin(ok))
             finite = bad is None and P_finite
             err = pose_err(p, R, ki, T - 1)
-            # K4 in the stacked, ZUPT (where ZUPT is on) and last-chance
-            # updates, none under the information and Joseph forms
-            per_frame = (0 if cfg.update_form == "information"
-                         or cfg.joseph_form else 2 + cfg.if_zupt)
+            per_frame = k4_per_frame(cfg)
             jbad = jax_fig["first_nonfinite_frame"]
             jbad = jbad if jbad is not None and jbad < T else None
             check(ki == k0, f"flags {name}: init on frame {ki} == {k0} (JAX)")
@@ -1135,11 +1193,13 @@ def flag_phase(dev, bench, wc):
                                                  t_c_b=t_c_b.double()))
         jf = JAX_FLAGS[name]["flight"]
         launch_counts(reset=True)
-        outs = []
+        outs, nui = [], []
         for k in range(TF):
             vs, out = vio_step(cfg, vs, frame64[k], chi2)
             outs.append(out)
+            nui.append(vs.filter.nui.valid.any())
         k4f = launch_counts()["cov_update"]
+        demoted = first_true(torch.stack(nui).cpu().numpy())
         p = torch.stack([o.p for o in outs]).cpu().numpy()
         R = torch.stack([o.R for o in outs]).cpu().numpy()
         moved = np.abs(R - np.eye(3)).reshape(TF, -1).max(1) > 0
@@ -1149,7 +1209,20 @@ def flag_phase(dev, bench, wc):
         err_f = pose_err(p, R, ki, TF - 1)
         n_upd_f = int(sum(int(o.n_update_features) for o in outs[T:]))
         n_filter = 0 if ki is None else TF - 1 - ki
-        per_frame = 2 + cfg.if_zupt
+        per_frame = k4_per_frame(cfg)
+        blocks = {}
+        if cfg.use_schmidt:
+            check(demoted is not None,
+                  f"flags {name} float64: a clone demoted to a nuisance slot "
+                  f"by frame {TF - 1}: first on frame {demoted} (JAX "
+                  f"{jf['first_demotion_frame']})")
+            blocks = schmidt_blocks(vs.filter.P.cpu().numpy(),
+                                    cfg.nuisance_cap)
+            for key, x in blocks.items():
+                check(bool(abs(x - jf[key]) <= SCHMIDT_BLOCK_RTOL * jf[key]),
+                      f"flags {name} float64: P's {key} at frame {TF - 1} "
+                      f"{x:.6e} within {SCHMIDT_BLOCK_RTOL:.0%} of JAX's "
+                      f"{jf[key]:.6e}")
         check(ki == jf["init_frame"] and finite_f,
               f"flags {name} float64: init on frame {ki} == "
               f"{jf['init_frame']} (JAX), finite to frame {TF - 1}")
@@ -1167,8 +1240,10 @@ def flag_phase(dev, bench, wc):
             "dtype": "float64", "frames": TF, "init_frame": ki,
             "pos_err_m": err_f, "jax_pos_err_m": jf["pos_err_m"],
             "finite": finite_f, "n_upd": n_upd_f, "jax_n_upd": jf["n_upd"],
-            "k4_launches": k4f,
-            "zupt_frames": int(sum(bool(o.zupt) for o in outs[T:]))}
+            "k4_launches": k4f, "first_demotion_frame": demoted,
+            "jax_first_demotion_frame": jf.get("first_demotion_frame"),
+            "zupt_frames": int(sum(bool(o.zupt) for o in outs[T:])),
+            **blocks, **{"jax_" + key: jf[key] for key in blocks}}
         print(f"flags {name} flight: " + json.dumps(report[name]["flight"]),
               flush=True)
     check(tracker_launches["window_gather"] == TF
@@ -1176,6 +1251,17 @@ def flag_phase(dev, bench, wc):
           f"flags: tracker launches {tracker_launches} == K1 1*T, K2 4*T "
           f"(T = {TF})")
     return report, captured, tracker_launches
+
+
+def k4_per_frame(cfg):
+    """K4's launches a filter frame: the stacked, ZUPT (where ZUPT is on)
+    and last-chance updates, none under the information and Joseph forms,
+    whose covariance steps are plain algebra, unless Schmidt states turn
+    them into the qr and plain forms."""
+    schmidt = cfg.use_schmidt and cfg.nuisance_cap > 0
+    if (cfg.update_form == "information" or cfg.joseph_form) and not schmidt:
+        return 0
+    return 2 + cfg.if_zupt
 
 
 def update_forms_check(dev, seed=5):
@@ -1969,18 +2055,32 @@ def main() -> int:
     # ---------------- 10. the flag variants ----------------
     flags, k4_in, flag_tracker = flag_phase(dev, bench, wc)
     form_errs = update_forms_check(dev)
-    main_shapes = {(172, 444), (172, 384), (172, 9)}
-    new_shapes = [(142, 384), (232, 444), (172, 172)]
+    # K4's (D, q, nb) in the variants: pure MSCKF, 3-d inverse depth, the
+    # qr and chol forms, then calib_imu (D = 196), Schmidt (D = 208, nb =
+    # 172) and both (D = 232, nb = 196), each at the stacked update's
+    # q = 444 and ZUPT's q = 9
+    main_shapes = {(172, 444, 172), (172, 384, 172), (172, 9, 172)}
+    new_shapes = [(142, 384, 142), (232, 444, 232), (172, 172, 172),
+                  (196, 444, 196), (196, 9, 196), (208, 444, 172),
+                  (208, 9, 172), (232, 444, 196), (232, 9, 196)]
     check(all(x in k4_in for x in new_shapes),
-          f"K4 saw the variants' new shapes (D, q) {new_shapes}: "
+          f"K4 saw the variants' new shapes (D, q, nb) {new_shapes}: "
           f"{sorted(k4_in)}")
+    # the nb entry on seeded inputs at the new D's, float32 and float64, nb
+    # a multiple of the 32-row tile (160) and not (172, 196)
+    k4_nb_cases = [(f"random nb D={D} q={q} {str(dtype)[6:]}",
+                    *k4_inputs(D, q, D + q, dtype, dev), D - 36)
+                   for D in (196, 208, 232) for q in (444, 9)
+                   for dtype in (torch.float32, torch.float64)]
     k4_flag_err, k4_flag_ratio = k4_check(
-        [(f"flags D={D} q={q}", *k4_in[(D, q)])
-         for D, q in sorted(k4_in) if (D, q) not in main_shapes])
-    k4_flag_times = {f"D={D} q={q}": {
-        k: v for k, v in k4_times(*k4_in[(D, q)]).items()
-        if k in ("kernel_ms", "library_ms", "addmm_ms", "bound_ms")}
-        for D, q in new_shapes if (D, q) in k4_in}
+        [(f"flags D={D} q={q} nb={nb}", *k4_in[(D, q, nb)], nb)
+         for D, q, nb in sorted(k4_in) if (D, q, nb) not in main_shapes]
+        + k4_nb_cases)
+    k4_flag_times = {f"D={D} q={q} nb={nb}": {
+        k: v for k, v in k4_times(*k4_in[(D, q, nb)], nb).items()
+        if k in ("kernel_ms", "library_ms", "addmm_ms", "bound_ms", "ops",
+                 "bytes")}
+        for D, q, nb in new_shapes if (D, q, nb) in k4_in}
     emit({"flags": {"frames": FLAG_FRAMES, "flight_frames": FLIGHT_FRAMES,
                     "variants": flags, "update_forms_rel_err": form_errs,
                     "tracker_launches": flag_tracker,

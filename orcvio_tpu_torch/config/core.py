@@ -3,10 +3,6 @@
 Counterpart of ``orcvio_tpu/config/core.py`` (reference: loadParameters,
 orcvio.cpp:62-415): the same frozen dataclass, field for field, with the
 same defaults. Fields select code paths and fix capacities.
-
-``require_supported`` raises on the flag branches not ported yet (the IMU
-intrinsics and Schmidt nuisance states, ROADMAP item 12 part 2) instead
-of running something else.
 """
 from __future__ import annotations
 
@@ -135,16 +131,3 @@ class FilterConfig:
         q[9:12] = self.acc_bias_noise**2
         return np.diag(q)
 
-
-def require_supported(cfg: FilterConfig) -> None:
-    """Raise NotImplementedError on a flag branch the port does not run yet:
-    the IMU intrinsics and Schmidt nuisance states (ROADMAP item 12 part
-    2). Every other flag of the filter runs."""
-    bad = [name for name, on in (
-        ("calib_imu", cfg.calib_imu),
-        ("use_schmidt / nuisance_cap", cfg.use_schmidt or cfg.nuisance_cap),
-    ) if on]
-    if bad:
-        raise NotImplementedError(
-            "orcvio_tpu_torch does not port these filter flags yet (ROADMAP "
-            "item 12 part 2): " + ", ".join(bad))

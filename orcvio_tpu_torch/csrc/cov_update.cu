@@ -9,6 +9,12 @@
 //
 //   P (D, D), K (D, q), HP (q, D), out (D, D), row-major, float or double.
 //
+// The nb entry (the Schmidt update, nb = D - 6 nuisance_cap): the entries
+// whose row and column are both >= nb keep 0.5 (P(r, c) + P(c, r)), which
+// is P itself for a symmetric P; every other entry is as above. A tile
+// pair wholly inside [nb, D)^2 skips its q loop; a tile that straddles nb
+// masks its products entry by entry. nb = D is the plain update.
+//
 // Bound: operations. With HP given the function does 2 D^2 q FLOP on
 // (2 D^2 + 2 D q) elements in and out: at the bench's D = 172, q = 444,
 // 26 MFLOP against 0.85 MB, 0.39 us at the FP32 (or FP64 tensor-core) peak
@@ -190,7 +196,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cov_update_kernel(const T* __restrict__ P, const T* __restrict__ K,
                   const T* __restrict__ HP, T* __restrict__ out, int D, int q,
-                  int nt, int vec) {
+                  int nb, int nt, int vec) {
   constexpr int kStages = stages<T>();
   extern __shared__ __align__(16) unsigned char smem[];
   Stage<T>* ring = reinterpret_cast<Stage<T>*>(smem);
@@ -209,10 +215,12 @@ cov_update_kernel(const T* __restrict__ P, const T* __restrict__ K,
   const bool diag = bi == bj;
   const int i0 = bi * kTile, j0 = bj * kTile;
 
-  // this rank's share of q, in whole chunks
+  // this rank's share of q, in whole chunks; none in a tile pair wholly
+  // inside the kept block (i0 <= j0, so i0 >= nb puts both there)
   const int nch = (q + kChunk - 1) / kChunk;
   const int c_lo = (int)((long long)nch * rank / cs);
-  const int mine = (int)((long long)nch * (rank + 1) / cs) - c_lo;
+  const int mine =
+      i0 >= nb ? 0 : (int)((long long)nch * (rank + 1) / cs) - c_lo;
 
   // warp w owns the 16x8 block (wr, wc) of both products, one DMMA tile
   // each; lane (g, tg) holds rows wr + g and wr + g + 8
@@ -309,6 +317,7 @@ cov_update_kernel(const T* __restrict__ P, const T* __restrict__ K,
           a_cr += v_cr[k];
         }
       }
+      if (R >= nb && C >= nb) a_rc = a_cr = 0.0;  // the kept block
       const T v = (T)(0.5 * (((double)p_rc[m] - a_rc) +
                              ((double)p_cr[m] - a_cr)));
       out[(size_t)R * D + C] = v;
@@ -343,7 +352,7 @@ template <typename T>
 __global__ void __launch_bounds__(kSmallThreads)
 cov_update_small_kernel(const T* __restrict__ P, const T* __restrict__ K,
                         const T* __restrict__ HP, T* __restrict__ out, int D,
-                        int q) {
+                        int q, int nb) {
   __shared__ double ks[2][kSmall][kChunk + 1];   // K rows of tiles i, j
   __shared__ double hs[2][kChunk][kSmall + 1];   // HP columns of tiles i, j
   const int i0 = blockIdx.y * kSmall, j0 = blockIdx.x * kSmall;
@@ -352,6 +361,8 @@ cov_update_small_kernel(const T* __restrict__ P, const T* __restrict__ K,
   const bool in = R < D && C < D;
   const T p_rc = in ? P[(size_t)R * D + C] : T(0);
   const T p_cr = in ? P[(size_t)C * D + R] : T(0);
+  // a tile wholly inside the kept block stages and sums nothing
+  const int qs = i0 < nb || j0 < nb ? q : 0;
   // 2 x 16 x q of each operand, at most 4 elements a thread
 #pragma unroll
   for (int m = 0; m < 2 * kSmall * kChunk / kSmallThreads; ++m) {
@@ -359,18 +370,19 @@ cov_update_small_kernel(const T* __restrict__ P, const T* __restrict__ K,
     const int w = e / (kSmall * kChunk), f = e % (kSmall * kChunk);
     const int g = w ? j0 : i0;
     const int row = f / kChunk, k = f % kChunk;  // K: row of the tile, k
-    if (k < q)
+    if (k < qs)
       ks[w][row][k] = g + row < D ? (double)K[(size_t)(g + row) * q + k] : 0.0;
     const int kh = f / kSmall, col = f % kSmall;  // HP: k, column of the tile
-    if (kh < q)
+    if (kh < qs)
       hs[w][kh][col] = g + col < D ? (double)HP[(size_t)kh * D + g + col] : 0.0;
   }
   __syncthreads();
   double a_rc = 0.0, a_cr = 0.0;
-  for (int k = 0; k < q; ++k) {
+  for (int k = 0; k < qs; ++k) {
     a_rc = fma(ks[0][ty][k], hs[1][k][tx], a_rc);
     a_cr = fma(ks[1][tx][k], hs[0][k][ty], a_cr);
   }
+  if (R >= nb && C >= nb) a_rc = a_cr = 0.0;  // the kept block
   if (in)
     out[(size_t)R * D + C] =
         (T)(0.5 * (((double)p_rc - a_rc) + ((double)p_cr - a_cr)));
@@ -382,7 +394,7 @@ bool aligned16(const T* p) {
 }
 
 template <typename T>
-int launch(const T* P, const T* K, const T* HP, T* out, int D, int q,
+int launch(const T* P, const T* K, const T* HP, T* out, int D, int q, int nb,
            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -391,7 +403,7 @@ int launch(const T* P, const T* K, const T* HP, T* out, int D, int q,
     const int ns = (D + kSmall - 1) / kSmall;
     cov_update_small_kernel<T>
         <<<dim3(ns, ns), kSmallThreads, 0, (cudaStream_t)stream>>>(
-            P, K, HP, out, D, q);
+            P, K, HP, out, D, q, nb);
     return (int)cudaGetLastError();
   }
   constexpr size_t bytes = smem_bytes<T>();
@@ -425,7 +437,7 @@ int launch(const T* P, const T* K, const T* HP, T* out, int D, int q,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, cov_update_kernel<T>, P, K, HP, out, D, q,
-                           nt, vec);
+                           nb, nt, vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -433,13 +445,13 @@ int launch(const T* P, const T* K, const T* HP, T* out, int D, int q,
 }  // namespace
 
 extern "C" int cov_update_f32(const float* P, const float* K, const float* HP,
-                              float* out, int D, int q, int device,
+                              float* out, int D, int q, int nb, int device,
                               void* stream) {
-  return launch<float>(P, K, HP, out, D, q, device, stream);
+  return launch<float>(P, K, HP, out, D, q, nb, device, stream);
 }
 
 extern "C" int cov_update_f64(const double* P, const double* K,
                               const double* HP, double* out, int D, int q,
-                              int device, void* stream) {
-  return launch<double>(P, K, HP, out, D, q, device, stream);
+                              int nb, int device, void* stream) {
+  return launch<double>(P, K, HP, out, D, q, nb, device, stream);
 }

@@ -45,6 +45,14 @@ VARIANTS = {
     "update_chol": dict(update_form="chol"),
     "update_information": dict(update_form="information"),
     "joseph": dict(joseph_form=True),
+    # the IMU intrinsics (24 states at intrinsic_base) and Schmidt nuisance
+    # clones, with the cap the JAX package's own Schmidt run uses
+    # (tests/test_hybrid_ekf.py)
+    "calib_imu": dict(calib_imu=True),
+    "schmidt": dict(use_schmidt=True, nuisance_cap=6),
+    "schmidt_ref": dict(use_schmidt=True, nuisance_cap=6,
+                        schmidt_reference_semantics=True),
+    "calib_schmidt": dict(calib_imu=True, use_schmidt=True, nuisance_cap=6),
 }
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import no_tf32, resolve_device
-from ..config.core import FilterConfig, require_supported
+from ..config.core import FilterConfig
 from ..filter.pipeline import FrameInput, build_chi2_table
 from ..frontend.tracker import TrackerConfig, TrackerState, process_frame
 from ..vio import VioState, vio_step
@@ -83,7 +83,6 @@ def make_e2e_replay(cfg: FilterConfig, tc: TrackerConfig, R_b2c, t_c_b,
     package's draws). Timestamps are used as given; a caller with absolute
     epochs rebases them first, since float32 cannot hold them.
     """
-    require_supported(cfg)
     device = resolve_device(device)
     no_tf32()
     chi2 = build_chi2_table(cfg, dtype, device)

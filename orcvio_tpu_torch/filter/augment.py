@@ -12,7 +12,7 @@ import torch
 
 from ..config.core import FilterConfig
 from ..math import linalg, so3
-from .state import LEG, FilterState, put
+from .state import LEG, FilterState, apply_imu_intrinsics_delta, put
 
 _INT_MIN = torch.iinfo(torch.int32).min
 
@@ -162,4 +162,12 @@ def increment_state(cfg: FilterConfig, state: FilterState, dx) -> FilterState:
         slot = torch.clamp(ft.state_slot, 0, E - 1).long()
         delta = torch.where(ft.in_state[:, None], dfeat[slot], 0.0)
         state = state.replace(features=ft.replace(idp=ft.idp + delta))
+
+    # IMU intrinsics: additive, then the matrices rebuilt (orcvio.cpp:
+    # 4523-4533, updateImuMx)
+    if cfg.calib_imu:
+        ib = cfg.intrinsic_base
+        Tg, As, Ma = apply_imu_intrinsics_delta(state.Tg, state.As, state.Ma,
+                                                dx[ib: ib + 24])
+        state = state.replace(Tg=Tg, As=As, Ma=Ma)
     return state

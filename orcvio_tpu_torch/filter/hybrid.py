@@ -9,8 +9,12 @@ blocks, (alpha, beta, rho) or rho alone with the anchor bearing fixed.
 Promotion writes covariance blocks in place at a slot held on the device,
 removal zeroes them. The Jacobians use the left/LARVIO clone convention
 whatever the flags, as the JAX package's and the reference's hybrid paths
-do. Schmidt nuisance states are not ported (ROADMAP item 12 part 2); their
-capacity is 0 here.
+do. With Schmidt nuisance states (use_schmidt, nuisance_cap) a pruned
+clone that still anchors EKF features moves to a nuisance slot
+(``schmidt_demote``, the Schmidt branch of pruneImuStateBuffer,
+orcvio.cpp:2874-2955) and its features keep their anchor there (extended
+anchor slot sw_size + nuisance slot); a nuisance slot no feature anchors
+on is freed (``retire_nuisance``, rmUselessNuisanceState :4421).
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 from ..config.core import FilterConfig
 from ..math import linalg, se3, so3
 from .augment import cam_poses
-from .state import LEG, FilterState, set_block, set_rows, take, tree_where
+from .state import (LEG, FilterState, put, set_block, set_rows, take,
+                    tree_where)
 
 
 def ekf_base(cfg: FilterConfig) -> int:
@@ -42,11 +47,29 @@ def _rho(idp):
     return torch.where(torch.abs(idp[:, 2]) > 1e-8, idp[:, 2], 1e-8)
 
 
-def feature_world_points(state: FilterState, cfg: FilterConfig = None):
-    """World positions of in-state features from (idp, anchor clone)."""
+def nui_base(cfg: FilterConfig) -> int:
+    """First error-state column of the nuisance blocks: after the EKF
+    features and the IMU intrinsics."""
+    return (ekf_base(cfg) + idp_dim(cfg) * cfg.ekf_feature_cap
+            + cfg.intrinsic_dim)
+
+
+def extended_cam_poses(cfg: FilterConfig, state: FilterState):
+    """Camera poses of the clones, then of the nuisance clones: indexed by
+    extended anchor slots (slot sw_size + n is nuisance slot n)."""
     R_c2w, t_c_w = cam_poses(state)
-    a = torch.clamp(state.features.anchor_slot.long(), 0,
-                    state.clones.valid.shape[0] - 1)
+    if cfg.nuisance_cap == 0:
+        return R_c2w, t_c_w
+    R_n = state.nui.R @ state.R_b2c.T
+    t_n = state.nui.p + torch.einsum("nij,j->ni", state.nui.R, state.t_c_b)
+    return torch.cat([R_c2w, R_n]), torch.cat([t_c_w, t_n])
+
+
+def feature_world_points(state: FilterState, cfg: FilterConfig):
+    """World positions of in-state features from (idp, anchor clone), the
+    anchor a nuisance clone where it was demoted."""
+    R_c2w, t_c_w = extended_cam_poses(cfg, state)
+    a = torch.clamp(state.features.anchor_slot.long(), 0, R_c2w.shape[0] - 1)
     idp = state.features.idp
     rho = _rho(idp)
     p_ca = torch.stack([idp[:, 0] / rho, idp[:, 1] / rho, 1.0 / rho], dim=1)
@@ -81,7 +104,7 @@ def ekf_feature_rows(cfg: FilterConfig, state: FilterState, cur_slot) -> EkfRows
     Ref: measurementJacobian_ekf_3didp (orcvio.cpp:1229) and _1didp
     (:1356). A 3-d feature observed in its anchor frame observes (alpha,
     beta) directly (:1305); a 1-d one does not use that observation
-    (:1434)."""
+    (:1434). A demoted anchor's columns are its nuisance block's."""
     ft = state.features
     F = ft.fid.shape[0]
     D = state.P.shape[0]
@@ -89,18 +112,24 @@ def ekf_feature_rows(cfg: FilterConfig, state: FilterState, cur_slot) -> EkfRows
     sw = cfg.sw_size
     B = idp_dim(cfg)
 
-    a = torch.clamp(ft.anchor_slot.long(), 0, sw - 1)
+    N = cfg.nuisance_cap
+    anchor_valid = state.clones.valid
+    imu_p = state.clones.p
+    if N:
+        anchor_valid = torch.cat([anchor_valid, state.nui.valid])
+        imu_p = torch.cat([imu_p, state.nui.p])
+    a = torch.clamp(ft.anchor_slot.long(), 0, sw + N - 1)
     cur = cur_slot.reshape(1).long()
     uv_cur = ft.uv_valid.index_select(1, cur)[:, 0]
-    valid = ft.in_state & ft.active & uv_cur & state.clones.valid[a]
+    valid = ft.in_state & ft.active & uv_cur & anchor_valid[a]
     z = ft.uv.index_select(1, cur)[:, 0]  # (F, 2)
 
-    R_c2w, t_c_w = cam_poses(state)
+    R_c2w, t_c_w = extended_cam_poses(cfg, state)
     p_w, _ = feature_world_points(state, cfg)
     R_w2ck = take(R_c2w, cur_slot).T
     t_ck_w = take(t_c_w, cur_slot)
     t_bk_w = take(state.clones.p, cur_slot)
-    t_ba_w = state.clones.p[a]
+    t_ba_w = imu_p[a]
 
     p_ck = torch.einsum("ij,fj->fi", R_w2ck, p_w - t_ck_w)
     zk = torch.where(torch.abs(p_ck[:, 2]) > 1e-6, p_ck[:, 2], 1e-6)
@@ -134,7 +163,10 @@ def ekf_feature_rows(cfg: FilterConfig, state: FilterState, cur_slot) -> EkfRows
     ar6 = torch.arange(6, device=dev)
     H = torch.zeros((F, 2, D), dtype=dtype, device=dev)
     H = _scatter_cols(H, LEG + 6 * cur_slot.long() + ar6, H_x)
-    H = _scatter_cols(H, (LEG + 6 * a)[:, None] + ar6, H_a)
+    # anchor columns: the clone block, or the nuisance block of a demoted
+    # anchor
+    a_col0 = torch.where(a < sw, LEG + 6 * a, nui_base(cfg) + 6 * (a - sw))
+    H = _scatter_cols(H, a_col0[:, None] + ar6, H_a)
     slot = torch.clamp(ft.state_slot.long(), 0, max(cfg.ekf_feature_cap - 1, 0))
     H = _scatter_cols(H, (ekf_base(cfg) + B * slot)[:, None]
                       + torch.arange(B, device=dev), H_f)
@@ -388,3 +420,73 @@ def reanchor_features(cfg: FilterConfig, state: FilterState, prune_mask,
         anchor_slot=torch.where(ok, cur_slot, ft.anchor_slot.long()).to(torch.int32),
     )
     return tree_where(if_any, state.replace(P=P, features=ft2), state)
+
+
+def schmidt_demote(cfg: FilterConfig, state: FilterState, prune_mask):
+    """Move each pruned clone that anchors an in-state EKF feature into the
+    first free nuisance slot, in slot order: its covariance rows, columns
+    and block copied to the nuisance block (the stale cross block between
+    the two zeroed), its pose copied, its features' anchor remapped to
+    sw_size + the nuisance slot. Ref: the Schmidt branch of
+    pruneImuStateBuffer (orcvio.cpp:2874-2955). Where no slot is free the
+    clone is left to the caller's removal pass."""
+    N = cfg.nuisance_cap
+    if N == 0 or not cfg.use_schmidt:
+        return state
+    sw = cfg.sw_size
+    dev = state.P.device
+    nb = nui_base(cfg)
+    ar6 = torch.arange(6, device=dev)
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    for slot in range(sw):
+        st = state
+        ft = st.features
+        has_anchor = torch.any(ft.in_state & (ft.anchor_slot == slot))
+        free = ~st.nui.valid
+        n_slot = torch.argmax(free.to(torch.int8))
+        do = (prune_mask[slot] & has_anchor & st.clones.valid[slot]
+              & take(free, n_slot))
+
+        c = LEG + 6 * slot
+        n = nb + 6 * n_slot + ar6
+        P = st.P.index_copy(0, n, st.P[c: c + 6])
+        P = P.index_copy(1, n, P[:, c: c + 6])
+        P = P.index_put((n[:, None], n[None, :]), st.P[c: c + 6, c: c + 6])
+        zero = P.new_zeros((6, 6))
+        P = P.index_put((n[:, None], (c + ar6)[None, :]), zero)
+        P = P.index_put(((c + ar6)[:, None], n[None, :]), zero)
+
+        nui = st.nui.replace(R=put(st.nui.R, n_slot, st.clones.R[slot]),
+                             p=put(st.nui.p, n_slot, st.clones.p[slot]),
+                             t=put(st.nui.t, n_slot, st.clones.t[slot]),
+                             valid=put(st.nui.valid, n_slot, true))
+        remap = ft.in_state & (ft.anchor_slot == slot)
+        ft2 = ft.replace(anchor_slot=torch.where(
+            remap, sw + n_slot, ft.anchor_slot.long()).to(torch.int32))
+        state = tree_where(do, st.replace(P=P, nui=nui, features=ft2), st)
+    return state
+
+
+def retire_nuisance(cfg: FilterConfig, state: FilterState):
+    """Free the nuisance slots no in-state feature anchors on: zero their
+    covariance blocks and invalidate them. Ref: rmUselessNuisanceState
+    (orcvio.cpp:4421)."""
+    N = cfg.nuisance_cap
+    if N == 0:
+        return state
+    sw = cfg.sw_size
+    D = state.P.shape[0]
+    dev = state.P.device
+    ft = state.features
+    anchored = set_rows(
+        torch.zeros(N, dtype=torch.bool, device=dev),
+        torch.where(ft.in_state & (ft.anchor_slot >= sw),
+                    torch.clamp(ft.anchor_slot.long() - sw, 0, N - 1), N),
+        torch.ones((), dtype=torch.bool, device=dev))
+    kill = state.nui.valid & ~anchored
+    # the nuisance blocks are the last 6 N columns
+    colmask = torch.cat([torch.ones(D - 6 * N, dtype=torch.bool, device=dev),
+                         ~torch.repeat_interleave(kill, 6)])
+    P = state.P * (colmask[:, None] & colmask[None, :])
+    return state.replace(P=P, nui=state.nui.replace(
+        valid=state.nui.valid & ~kill))

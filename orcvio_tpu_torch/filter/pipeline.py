@@ -4,7 +4,7 @@ update -> prune.
 Counterpart of ``orcvio_tpu/filter/pipeline.py`` (reference:
 OrcVIO::processFeatures, orcvio.cpp:500): FilterState x FrameInput ->
 FilterState x FrameOutput, at fixed capacities and with masks, as the JAX
-package runs it, for the flags ``config.core.require_supported`` accepts.
+package runs it, for every flag of ``config.core.FilterConfig``.
 Nothing in a step reads the device back: choices are made with
 ``torch.where`` over whole states, scatters go through spill rows, and
 the ranks use a stable sort (``math.linalg.top_k_indices``).
@@ -12,7 +12,8 @@ the ranks use a stable sort (``math.linalg.top_k_indices``).
 Kernel K4 (``ops/cov_update.py``) runs three times a frame, in the
 stacked update, the ZUPT update (computed every frame and kept where ZUPT
 fires) and the last-chance update, except under the "information" update
-form and the Joseph form, whose covariance steps are plain algebra.
+form and the Joseph form without Schmidt states, whose covariance steps
+are plain algebra.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from .. import no_tf32, resolve_device
-from ..config.core import FilterConfig, require_supported
+from ..config.core import FilterConfig
 from ..math import linalg
 from . import features as feat
 from . import propagation as prop
@@ -29,7 +30,7 @@ from .augment import (cam_poses, current_clone_slot, prune_clones,
                       select_prune_slots, state_augmentation)
 from .hybrid import (_idp_jacobian, ekf_feature_rows, promote_features,
                      reanchor_features, remove_state_features,
-                     split_projection)
+                     retire_nuisance, schmidt_demote, split_projection)
 from .state import FilterState, set_rows, tree_where
 from .tracks import compact_tracks
 from .triangulation import check_motion, triangulate
@@ -73,7 +74,6 @@ def filter_step(cfg: FilterConfig, state: FilterState, frame: FrameInput,
 
     Float32 products stay in full float32 (no TF32): the covariance algebra
     is as sensitive to TF32 as the JAX package's is to bf16 passes."""
-    require_supported(cfg)
     no_tf32()
     dtype = state.P.dtype
     sw = cfg.sw_size
@@ -106,14 +106,21 @@ def filter_step(cfg: FilterConfig, state: FilterState, frame: FrameInput,
 
     # 4. classification (removeLostFeatures, :2196): drop in-state features
     #    that lost track or whose anchor died (rmLostFeaturesCov, :3776)
+    #    (an anchor demoted to a nuisance slot lives while the slot does)
     E = cfg.ekf_feature_cap
+    schmidt = cfg.use_schmidt and cfg.nuisance_cap > 0
     if E:
         ft = state.features
-        anchor_ok = (ft.anchor_slot >= 0) & state.clones.valid[
-            torch.clamp(ft.anchor_slot.long(), 0, sw - 1)]
+        valid_ext = state.clones.valid
+        if cfg.nuisance_cap:
+            valid_ext = torch.cat([valid_ext, state.nui.valid])
+        anchor_ok = (ft.anchor_slot >= 0) & valid_ext[
+            torch.clamp(ft.anchor_slot.long(), 0, valid_ext.shape[0] - 1)]
         kill_state = ft.in_state & (~ft.active | ~anchor_ok)
         state = remove_state_features(cfg, state, kill_state)
         state = state.replace(features=feat.free_rows(state.features, kill_state))
+        if schmidt:
+            state = retire_nuisance(cfg, state)
 
     ft = state.features
     live = ft.fid >= 0
@@ -227,6 +234,10 @@ def filter_step(cfg: FilterConfig, state: FilterState, frame: FrameInput,
         state, _ = msckf_update(cfg, state, fj_lc, use_lc)
 
     if E:
+        # Schmidt: pruned anchors move to nuisance slots first; those that
+        # find no free slot fall through to re-anchoring and removal
+        if schmidt:
+            state = schmidt_demote(cfg, state, prune_mask)
         # re-anchor surviving features to the current clone (orcvio.cpp:2666);
         # degenerate ones fall through to removal
         state = reanchor_features(cfg, state, prune_mask, cur_slot)

@@ -156,10 +156,24 @@ def apply_ekf_update(cfg: FilterConfig, state: FilterState, H, r):
     JAX package's does on the CPU (``cholesky_ex``: no host read of the
     error flag). The covariance step is sym((I - K H) P), kernel K4, or
     with ``joseph_form`` (I - K H) P (I - K H)^T + sigma^2 K K^T in plain
-    algebra, as the JAX package computes it."""
-    if cfg.update_form == "information":
+    algebra, as the JAX package computes it.
+
+    With Schmidt nuisance states (the last 6 nuisance_cap columns, from
+    nb = D - 6 nuisance_cap) the nuisance means and P_nn stay as they are:
+    "information" runs as "qr" and ``joseph_form`` is ignored, as in the
+    JAX package. The textbook form zeroes the nuisance rows of the gain
+    for dx, and its covariance keeps P_nn and takes the one-sided update
+    P_an - K_a (HP)_n into the cross block; the reference form
+    (``schmidt_reference_semantics``) keeps the full gain and averages
+    the two sides of the cross block. Since K = (S^{-1} H P)^T with S
+    symmetric, K_n (HP)_a = (K_a (HP)_n)^T, so both covariances are
+    sym(P - K HP) with P_nn kept: K4 with the full gain and its nb
+    entry."""
+    D = state.P.shape[0]
+    schmidt = cfg.use_schmidt and cfg.nuisance_cap > 0
+    if cfg.update_form == "information" and not schmidt:
         return information_update(cfg, state, H.T @ H, H.T @ r)
-    if cfg.update_form == "qr":
+    if cfg.update_form in ("qr", "information"):
         H, r = linalg.qr_compress(H, r)
     elif cfg.update_form == "chol":
         H, r = linalg.chol_compress(H, r)
@@ -176,12 +190,18 @@ def apply_ekf_update(cfg: FilterConfig, state: FilterState, H, r):
     L = torch.where(info == 0, L, torch.nan)
     K = torch.cholesky_solve(HP, L).T
     dx = K @ r
+    if not schmidt:
+        state = increment_state(cfg, state, dx)
+        if cfg.joseph_form:
+            I_KH = torch.eye(D, dtype=P.dtype, device=P.device) - K @ H
+            return state.replace(P=linalg.symmetrize(
+                I_KH @ P @ I_KH.T + sigma2 * (K @ K.T))), dx
+        return state.replace(P=cov_update(P, K, H, HP)), dx
+    nb = D - 6 * cfg.nuisance_cap
+    if not cfg.schmidt_reference_semantics:
+        dx = torch.cat([dx[:nb], torch.zeros_like(dx[nb:])])
     state = increment_state(cfg, state, dx)
-    if cfg.joseph_form:
-        I_KH = torch.eye(P.shape[0], dtype=P.dtype, device=P.device) - K @ H
-        return state.replace(P=linalg.symmetrize(
-            I_KH @ P @ I_KH.T + sigma2 * (K @ K.T))), dx
-    return state.replace(P=cov_update(P, K, H, HP)), dx
+    return state.replace(P=cov_update(P, K, H, HP, nb=nb)), dx
 
 
 def msckf_update(cfg: FilterConfig, state: FilterState, fj: FeatureJacobians,

@@ -18,6 +18,12 @@ distributed shared memory, and stores one value at (i, j) and (j, i), so
 the output is exactly symmetric; where q <= 32 (the ZUPT update) a small
 kernel of f64 sums over every 16x16 tile takes its place (see the
 source's note).
+
+The nb entry serves the Schmidt update: the entries whose row and column
+are both >= nb (the nuisance block P_nn) keep P's value, sym(P)_nn, which
+is P_nn itself for a symmetric P; the others are sym(P - K HP) as
+without it. The kernel skips the products of the tiles wholly inside
+that block and masks the entries of a tile that straddles nb.
 """
 from __future__ import annotations
 
@@ -28,10 +34,13 @@ import torch
 from . import _build
 
 
-def cov_update_plain(P, K, H, HP=None):
+def cov_update_plain(P, K, H, HP=None, nb=None):
     """Plain PyTorch version: P - K @ (H @ P), symmetrized. HP, where given,
-    is H @ P already computed."""
+    is H @ P already computed; where nb < D, P[nb:, nb:] is kept before the
+    symmetrization."""
     A = P - K @ (H @ P if HP is None else HP)
+    if nb is not None and nb < P.shape[0]:
+        A[nb:, nb:] = P[nb:, nb:]
     return 0.5 * (A + A.T)
 
 
@@ -47,12 +56,17 @@ def _check_cuda(P, K, HP):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def cov_update(P, K, H, HP=None):
+def cov_update(P, K, H, HP=None, nb=None):
     """sym(P - K H P) for P (D, D), K (D, q), H (q, D); HP = H @ P where the
-    caller has it. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    caller has it; the block [nb:, nb:] kept where nb (default D) is given.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    D = P.shape[0]
+    nb = D if nb is None else int(nb)
+    if not 0 <= nb <= D:
+        raise ValueError(f"cov update: nb must lie in [0, {D}], got {nb}")
     if P.device.type == "cpu":
-        return cov_update_plain(P, K, H, HP)
+        return cov_update_plain(P, K, H, HP, nb)
     if P.device.type != "cuda":
         raise ValueError(f"cov update: unsupported device {P.device}")
     if HP is None:
@@ -64,7 +78,8 @@ def cov_update(P, K, H, HP=None):
     lib = _build.library("cov_update")
     entry = lib.cov_update_f32 if P.dtype == torch.float32 else lib.cov_update_f64
     rc = entry(P.data_ptr(), K.data_ptr(), HP.data_ptr(), out.data_ptr(), D, q,
-               P.device.index, torch.cuda.current_stream(P.device).cuda_stream)
+               nb, P.device.index,
+               torch.cuda.current_stream(P.device).cuda_stream)
     if rc:
         raise RuntimeError(f"cov update: CUDA error {rc} at launch")
     cov_update.launches += 1
@@ -76,4 +91,5 @@ cov_update.launches = 0
 for _fn in ("cov_update_f32", "cov_update_f64"):
     _build.declare("cov_update", _fn, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p])

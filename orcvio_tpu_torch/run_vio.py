@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import no_tf32, resolve_device
-from .config.core import FilterConfig, require_supported
+from .config.core import FilterConfig
 from .filter.pipeline import FrameInput, build_chi2_table
 from .filter.state import tree_map
 from .frontend.tracker import TrackerConfig, TrackerState, process_frame
@@ -79,7 +79,6 @@ def run_image_sequence(
     (per frame, after the frame), "dynamic_attempts" [(k, ok or None)],
     "fps", "final_state".
     """
-    require_supported(cfg)
     device = resolve_device(device)
     no_tf32()
     K = len(frame_ts)

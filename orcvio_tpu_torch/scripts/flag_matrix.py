@@ -28,9 +28,10 @@ from pathlib import Path
 
 import numpy as np
 
-# the flag matrix's rows: the bench flags and the PARITY.md rows
+# the flag matrix's rows: the bench flags, the PARITY.md rows and the IMU
+# intrinsics and Schmidt variants
 ROWS = ("base", "orcvio_prop", "left_perturb", "no_zupt", "pure_msckf",
-        "hybrid_3d")
+        "hybrid_3d", "calib_imu", "schmidt", "schmidt_ref", "calib_schmidt")
 # The JAX package on the same 300 frames, float32 on a CPU, from `python
 # tests/test_torch_flags_replay.py --jax-flag-matrix`: ATE posyaw (m).
 JAX_MATRIX = {
@@ -39,7 +40,11 @@ JAX_MATRIX = {
     "left_perturb": 0.051326269112411234,
     "no_zupt": 0.07445422998563328,
     "pure_msckf": 0.0454750267293697,
-    "hybrid_3d": 0.06885454181388655}
+    "hybrid_3d": 0.06885454181388655,
+    "calib_imu": 0.06887828861335617,
+    "schmidt": 0.05666362175857566,
+    "schmidt_ref": 0.05667747022587911,
+    "calib_schmidt": 0.06358845060052876}
 
 
 def _value(text):

@@ -199,12 +199,12 @@ def k4_phases(dev, D: int = 172, q: int = 444) -> dict:
         A @ A.T / D, rng.normal(size=(D, q)) * 0.1,
         rng.normal(size=(q, D)) * 0.1))
     lib = _stamped("cov_update")
-    lib.cov_update_f32.argtypes = [V, V, V, V, I, I, I, V]
+    lib.cov_update_f32.argtypes = [V, V, V, V, I, I, I, I, V]
     out = torch.empty_like(P)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for _ in range(3):
         lib.cov_update_f32(P.data_ptr(), K.data_ptr(), HP.data_ptr(),
-                           out.data_ptr(), D, q, dev.index or 0, stream)
+                           out.data_ptr(), D, q, D, dev.index or 0, stream)
     torch.cuda.synchronize()
     nt = -(-D // 32)
     stamps = _read(lib, 4096)

@@ -6,8 +6,9 @@ fixture's configuration of tests/test_torch_filter.py (``generate(SIM)``,
 8 clones, 48 feature rows, 6 EKF features, 8 update features, the bench
 flags) with the variant's overrides. From one initialized state (the
 fixture's pose, the variant's initial covariance) both packages run T = 60
-frames of filter_step in float64 on the CPU (with pixel velocities added
-to the frames where td is estimated): the JAX package as one
+frames of filter_step in float64 on the CPU (100 under Schmidt), with
+pixel velocities added to the frames where td is estimated and the IMU
+slab cut to 12 samples under calib_imu: the JAX package as one
 jitted lax.scan, the port frame by frame. Spies count the calls of the
 functions that make up each variant's branch: in the JAX package they run
 when the step is traced (so a count >= 1 says the branch is compiled into
@@ -16,6 +17,7 @@ the step), in the port on every frame.
 from __future__ import annotations
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import orcvio_tpu.filter.hybrid as jhyb
 import orcvio_tpu.filter.propagation as jprop
 import orcvio_tpu.filter.update as jupd
 import orcvio_tpu.math.linalg as jlinalg
@@ -41,6 +44,9 @@ from tests.test_torch_filter_ops import to_jax as jax_state_like
 from tests.test_torch_filter import sim_frames as _sim_frames
 
 T = 60
+# The Schmidt variants run the fixture's whole 100 frames: their nuisance
+# slots fill from frame 37 on, and the first is retired on frame 65.
+T_SCHMIDT = 100
 TOL = 1e-8
 # Variants whose runs amplify rounding more than the fixture's base does,
 # measured on the JAX package alone: multiplying every observation by
@@ -60,7 +66,12 @@ SPIES = {
     "update_qr": [(jlinalg, plinalg, "qr_compress")],
     "update_chol": [(jlinalg, plinalg, "chol_compress")],
     "update_information": [(jupd, pupd, "information_update")],
+    "calib_imu": [(jprop, pprop, "_bias_intrinsic_sensitivity")],
 }
+# the Schmidt functions: the port's pipeline calls its own imported names
+_SCHMIDT = [(jhyb, ppipe, "schmidt_demote"), (jhyb, ppipe, "retire_nuisance")]
+SPIES.update(schmidt=_SCHMIDT, schmidt_ref=_SCHMIDT,
+             calib_schmidt=_SCHMIDT + SPIES["calib_imu"])
 
 
 sim_frames = functools.lru_cache(maxsize=1)(_sim_frames)
@@ -89,10 +100,25 @@ def with_pixel_velocities(frames):
     return frames._replace(uv_vels=vel)
 
 
+# The IMU slab of the calib_imu variants' frames: every fixture frame fills
+# its first 10 of 24 slots, and a calib_imu step runs its slab sample by
+# sample (the JAX package unrolls it, one jacfwd a sample, in the step it
+# compiles), so these frames keep 12: the 10 and two masked samples, which
+# are exact no-ops in both packages. It halves the JAX compile.
+CALIB_SLAB = 12
+
+
 def variant_frames(name: str):
     frames = sim_frames()[0]
-    return (with_pixel_velocities(frames)
-            if variant_cfg(name).get("estimate_td") else frames)
+    cfg = variant_cfg(name)
+    if cfg.get("estimate_td"):
+        frames = with_pixel_velocities(frames)
+    if cfg.get("calib_imu"):
+        assert not np.asarray(frames.imu_mask)[:, CALIB_SLAB:].any()
+        frames = frames._replace(**{k: getattr(frames, k)[:, :CALIB_SLAB]
+                                    for k in ("imu_t", "imu_gyro", "imu_acc",
+                                              "imu_mask")})
+    return frames
 
 
 # runs beside the variants: the chol form without ZUPT, whose first
@@ -114,15 +140,21 @@ def initial_state(jcfg: JaxConfig):
                       initialized=st0.initialized)
 
 
-def frame_events(in_state, anchor):
-    """Per frame: promotions (rows entering the state) and re-anchorings
-    (rows staying in the state with another anchor). Frame 0 has none."""
-    in_state, anchor = np.asarray(in_state), np.asarray(anchor)
+def frame_events(in_state, anchor, nui_valid):
+    """Per frame: promotions (rows entering the state), re-anchorings (rows
+    staying in the state with another anchor), Schmidt demotions
+    (nuisance slots taken) and retirements (nuisance slots freed). Frame
+    0 has none."""
+    in_state, anchor, nui = map(np.asarray, (in_state, anchor, nui_valid))
     stay = in_state[1:] & in_state[:-1]
-    promoted = (in_state[1:] & ~in_state[:-1]).sum(axis=1)
-    reanchored = (stay & (anchor[1:] != anchor[:-1])).sum(axis=1)
-    return (np.concatenate([[0], promoted]),
-            np.concatenate([[0], reanchored]))
+    counts = ((in_state[1:] & ~in_state[:-1]).sum(axis=1),
+              (stay & (anchor[1:] != anchor[:-1])).sum(axis=1),
+              (nui[1:] & ~nui[:-1]).sum(axis=1),
+              (~nui[1:] & nui[:-1]).sum(axis=1))
+    return dict(zip(EVENTS, (np.concatenate([[0], c]) for c in counts)))
+
+
+EVENTS = ("promoted", "reanchored", "demoted", "retired")
 
 
 class _Counter:
@@ -138,16 +170,18 @@ class _Counter:
         mp.setattr(module, name, spy)
 
 
-@functools.lru_cache(maxsize=None)
-def run(name: str):
-    """Both packages' runs of variant `name`: a dict per package of
-    "out" (FrameOutput as numpy), "promoted", "reanchored" (per frame),
-    "final" (the last state as numpy), "spies" ({function: calls});
-    the port's also "cov_update" (K4 wrapper calls)."""
+def n_frames(name: str) -> int:
+    return T_SCHMIDT if variant_cfg(name).get("use_schmidt") else T
+
+
+def _jax_lowered(name: str):
+    """The JAX package's jitted lax.scan of n_frames(name) frames of
+    variant `name`,
+    lowered (traced, with the variant's spies counting), its inputs and
+    the spies' counts."""
     frames = variant_frames(name)
     jcfg = JaxConfig(**variant_cfg(name))
     st0 = initial_state(jcfg)
-    res = {}
     mp = pytest.MonkeyPatch()
     try:
         jspies = {fn: _Counter(mp, jm, fn) for jm, _, fn in SPIES.get(name, [])}
@@ -155,48 +189,79 @@ def run(name: str):
 
         def step(s, f):
             s, out = jpipe.filter_step(jcfg, s, f, chi2)
-            return s, (out, s.features.in_state, s.features.anchor_slot)
+            return s, (out, s.features.in_state, s.features.anchor_slot,
+                       s.nui.valid)
 
-        fr = jax.tree.map(lambda x: jnp.asarray(x[:T]), frames)
-        js, (jout, j_in, j_anchor) = jax.jit(
-            lambda s, f: jax.lax.scan(step, s, f))(st0, fr)
-        res["jax"] = dict(out=jax.tree.map(np.asarray, jout),
-                          final=state_to_numpy(js),
-                          spies={k: c.n for k, c in jspies.items()})
-        res["jax"]["promoted"], res["jax"]["reanchored"] = frame_events(
-            j_in, j_anchor)
+        fr = jax.tree.map(lambda x: jnp.asarray(x[:n_frames(name)]), frames)
+        lowered = jax.jit(lambda s, f: jax.lax.scan(step, s, f)).lower(st0, fr)
     finally:
         mp.undo()
+    return lowered, (st0, fr), {k: c.n for k, c in jspies.items()}
 
+
+_COMPILED = {}
+
+
+def compile_jax(names):
+    """Trace the JAX runs of `names` one after another, then compile them
+    in parallel threads (XLA's compile releases the GIL): their compiles
+    take most of a run's time. run() takes them from here."""
+    todo = [n for n in names if n not in _COMPILED]
+    lowered = [_jax_lowered(n) for n in todo]
+    with ThreadPoolExecutor(max(len(todo), 1)) as ex:
+        compiled = list(ex.map(lambda lo: lo[0].compile(), lowered))
+    for n, lo, c in zip(todo, lowered, compiled):
+        _COMPILED[n] = (c, *lo[1:])
+
+
+@functools.lru_cache(maxsize=None)
+def run(name: str):
+    """Both packages' runs of variant `name`: a dict per package of
+    "out" (FrameOutput as numpy), "final" (the last state as numpy),
+    "spies" ({function: calls}) and the per-frame EVENTS; the port's also
+    "cov_update" (K4 wrapper calls)."""
+    compile_jax([name])
+    compiled, (st0, fr), jspies = _COMPILED[name]
+    js, (jout, *jev) = compiled(st0, fr)
+    return {"jax": dict(out=jax.tree.map(np.asarray, jout),
+                        final=state_to_numpy(js), spies=jspies,
+                        **frame_events(*jev)),
+            "port": port_run(name)}
+
+
+@functools.lru_cache(maxsize=None)
+def port_run(name: str):
+    """The port's run of variant `name` alone (run()'s "port" entry)."""
+    frames = variant_frames(name)
     pcfg = FilterConfig(**variant_cfg(name))
     pchi2 = ppipe.build_chi2_table(pcfg, torch.float64, device="cpu")
-    ps = filter_state_from_numpy(state_to_numpy(st0), torch.float64, "cpu")
-    outs, p_in, p_anchor = [], [], []
+    ps = filter_state_from_numpy(
+        state_to_numpy(initial_state(JaxConfig(**variant_cfg(name)))),
+        torch.float64, "cpu")
+    outs, pev = [], []
+    mp = pytest.MonkeyPatch()
     try:
         pspies = {fn: _Counter(mp, pm, fn) for _, pm, fn in SPIES.get(name, [])}
         k4 = _Counter(mp, pupd, "cov_update")
-        for k in range(T):
+        for k in range(n_frames(name)):
             ps, out = ppipe.filter_step(pcfg, ps, port_frame(frames, k), pchi2)
             outs.append(out)
-            p_in.append(ps.features.in_state.numpy())
-            p_anchor.append(ps.features.anchor_slot.numpy())
+            pev.append((ps.features.in_state.numpy(),
+                        ps.features.anchor_slot.numpy(), ps.nui.valid.numpy()))
     finally:
         mp.undo()
-    res["port"] = dict(
+    return dict(
         out=ppipe.FrameOutput(*(torch.stack(x).numpy() for x in zip(*outs))),
         final=state_to_numpy(ps), spies={k: c.n for k, c in pspies.items()},
-        cov_update=k4.n)
-    res["port"]["promoted"], res["port"]["reanchored"] = frame_events(
-        np.stack(p_in), np.stack(p_anchor))
-    return res
+        cov_update=k4.n, **frame_events(*map(np.stack, zip(*pev))))
 
 
 def check_pose(name: str, field: str):
     """p, R or v of every frame within the variant's tolerance; NaN where
     and only where the JAX package's is NaN."""
     r = run(name)
-    j = getattr(r["jax"]["out"], field).reshape(T, -1)
-    p = getattr(r["port"]["out"], field).reshape(T, -1)
+    j = getattr(r["jax"]["out"], field).reshape(n_frames(name), -1)
+    p = getattr(r["port"]["out"], field).reshape(n_frames(name), -1)
     np.testing.assert_array_equal(np.isnan(p), np.isnan(j))
     err = np.nan_to_num(np.abs(j - p)).max(axis=1)
     tol = TOLS.get(name, TOL)
@@ -204,13 +269,13 @@ def check_pose(name: str, field: str):
 
 
 def check_decisions(name: str):
-    """Identical update counts, ZUPT flags, promotions and re-anchorings on
-    every frame."""
+    """Identical update counts, ZUPT flags, promotions, re-anchorings,
+    demotions and retirements on every frame."""
     r = run(name)
     for key in ("n_update_features", "zupt"):
         np.testing.assert_array_equal(getattr(r["port"]["out"], key),
                                       getattr(r["jax"]["out"], key),
                                       err_msg=f"{name} {key}")
-    for key in ("promoted", "reanchored"):
+    for key in EVENTS:
         np.testing.assert_array_equal(r["port"][key], r["jax"][key],
                                       err_msg=f"{name} {key}")

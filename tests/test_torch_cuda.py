@@ -11,7 +11,9 @@ K4 (``csrc/cov_update.cu``): within the rounding bound of two length-q
 sums (``k4_tolerance``, entry by entry, the same as chip_smoke.py's), in
 float32 and float64, at ragged and main-path shapes, on both sides of
 q = 32, where the small kernel hands over to the tiled one; exactly
-symmetric, whatever the shape; D = 0 gives an empty output.
+symmetric, whatever the shape; D = 0 gives an empty output. Its nb
+entry (Schmidt) keeps P[nb:, nb:] bit for bit, nb on and off the 32-row
+tile, on both kernels.
 
 K1 (``csrc/window_gather.cu``): bit-exact against the plain version.
 
@@ -95,6 +97,27 @@ def test_cov_update_matches_plain(card, dtype, D, q):
     err = (out - ref).abs().double()
     assert bool((err <= k4_tolerance(P, K, HP, ref)).all())
     assert torch.equal(cov_update(P, K, H), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D,q,nb", [
+    (196, 444, 160), (208, 444, 172), (232, 444, 196), (208, 9, 172),
+    (232, 9, 196), (50, 33, 0), (50, 9, 17), (172, 444, 172)])
+def test_cov_update_nb_keeps_the_block(card, dtype, D, q, nb):
+    """The nb entry (Schmidt): P[nb:, nb:] kept bit for bit, in tiles
+    wholly inside the block and in those that straddle nb, on both
+    kernels (q <= 32 and above); the rest as the plain version."""
+    P, K, H = _inputs(D, q, D + q + nb, dtype, card)
+    HP = H @ P
+    n = cov_update.launches
+    out = cov_update(P, K, H, HP, nb)
+    torch.cuda.synchronize()
+    assert cov_update.launches == n + 1
+    assert torch.equal(out, out.T)
+    assert torch.equal(out[nb:, nb:], P[nb:, nb:])
+    ref = cov_update_plain(P, K, H, HP, nb)
+    err = (out - ref).abs().double()
+    assert bool((err <= k4_tolerance(P, K, HP, ref)).all())
 
 
 def test_cov_update_empty(card):

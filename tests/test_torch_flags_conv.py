@@ -44,6 +44,11 @@ torch.set_num_threads(1)
 NAMES = ["left_perturb", "fej", "extrinsic_td"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _compiled():
+    fr.compile_jax(NAMES)
+
+
 @pytest.mark.parametrize("field", ["p", "R", "v"])
 @pytest.mark.parametrize("name", NAMES)
 def test_pose_matches_per_frame(name, field):

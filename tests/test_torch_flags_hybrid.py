@@ -3,9 +3,14 @@ package's, in float64 on the CPU.
 
 * 60 frames of filter_step (tests/flag_runs.py) under ``no_zupt``,
   ``pure_msckf`` (no EKF features: the stacked update is msckf_update's)
-  and ``hybrid_3d`` (3-d inverse-depth EKF features): p, R, v per frame
-  within 1e-8, identical decisions (update counts, ZUPT flags, promotions,
-  re-anchorings), and the branch fired in both packages.
+  and ``hybrid_3d`` (3-d inverse-depth EKF features), and the fixture's
+  100 frames under ``schmidt`` (Schmidt nuisance states, nuisance_cap 6),
+  ``schmidt_ref`` (the reference's Schmidt semantics) and
+  ``calib_schmidt`` (with the IMU intrinsics, its IMU slab cut to 12
+  samples): p, R, v per frame within 1e-8, identical decisions (update
+  counts, ZUPT flags, promotions, re-anchorings, demotions,
+  retirements), and the branch fired in both packages (under Schmidt at
+  least one demotion and one retirement, the final P within 1e-9).
 * The 3-d hybrid functions on the hybrid_3d run's last state (the port's)
   against the JAX functions on the same inputs: ekf_feature_rows (at every
   valid clone slot, the anchor-frame observation included),
@@ -26,7 +31,13 @@ from orcvio_tpu_torch.filter import hybrid as ph
 
 torch.set_num_threads(1)
 
-NAMES = ["no_zupt", "pure_msckf", "hybrid_3d"]
+NAMES = ["no_zupt", "pure_msckf", "hybrid_3d", "schmidt", "schmidt_ref",
+         "calib_schmidt"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled():
+    fr.compile_jax(NAMES)
 
 
 @pytest.mark.parametrize("field", ["p", "R", "v"])
@@ -51,10 +62,25 @@ def test_branch_fired(name):
         elif name == "pure_msckf":
             assert r[pkg]["promoted"].sum() == 0
             assert r[pkg]["final"]["P"].shape == (22 + 6 * 8,) * 2
-        else:
+        elif name == "hybrid_3d":
             assert r[pkg]["promoted"].sum() > 0
             assert r[pkg]["reanchored"].sum() > 0
             assert r[pkg]["final"]["P"].shape == (22 + 6 * 8 + 3 * 6,) * 2
+        else:  # Schmidt
+            D = 22 + 6 * 8 + 6 + 24 * (name == "calib_schmidt") + 6 * 6
+            assert r[pkg]["final"]["P"].shape == (D, D)
+            assert r[pkg]["demoted"].sum() > 0, "a clone demoted"
+            assert r[pkg]["retired"].sum() > 0, "a nuisance slot retired"
+    if name in ("schmidt", "schmidt_ref", "calib_schmidt"):
+        for fn in ("schmidt_demote", "retire_nuisance"):
+            assert r["jax"]["spies"][fn] >= 1, "traced into the JAX step"
+            assert r["port"]["spies"][fn] == fr.n_frames(name)
+        # the stacked, ZUPT and last-chance updates of every frame
+        assert r["port"]["cov_update"] == 3 * fr.n_frames(name)
+        for key in ("P", "Tg", "As", "Ma"):
+            np.testing.assert_allclose(r["port"]["final"][key],
+                                       r["jax"]["final"][key], rtol=0,
+                                       atol=1e-9, err_msg=key)
 
 
 def t(x):

@@ -4,11 +4,14 @@ JAX package's, in float64 on the CPU.
 * 60 frames of filter_step (tests/flag_runs.py) under ``orcvio_prop``
   (closed-form SE(3) mean, closed-form left Phi), ``orcvio_right`` (the
   right-perturbation closed-form Phi, noise matrix, increment and
-  Jacobians) and ``orcvio_euler`` (the first-order Phi of the JAX
-  package's FilterConfig() defaults): p, R, v per frame within 1e-8 (5e-8
-  for orcvio_prop and orcvio_euler, whose runs amplify rounding: see
-  flag_runs.TOLS), identical decisions, and each variant's transition
-  function reached in both packages.
+  Jacobians), ``orcvio_euler`` (the first-order Phi of the JAX package's
+  FilterConfig() defaults) and ``calib_imu`` (the IMU intrinsics, its
+  IMU slab cut to 12 samples): p, R, v per
+  frame within 1e-8 (5e-8 for orcvio_prop and orcvio_euler, whose runs
+  amplify rounding: see flag_runs.TOLS), identical decisions, and each
+  variant's transition function reached in both packages; under
+  calib_imu the intrinsics move off the identity, to the JAX package's
+  within 1e-9, with the final P.
 * The propagation functions on seeded random slabs: propagate_mean_closed_form,
   phi_euler (both conventions), phi_closed_form_right and the right noise
   matrix, each against the JAX function under jax.vmap, within 1e-12.
@@ -27,10 +30,16 @@ from orcvio_tpu_torch.filter.state import ImuState
 
 torch.set_num_threads(1)
 
-NAMES = ["orcvio_prop", "orcvio_right", "orcvio_euler"]
+NAMES = ["orcvio_prop", "orcvio_right", "orcvio_euler", "calib_imu"]
 BRANCH = {"orcvio_prop": "phi_closed_form_left",
           "orcvio_right": "phi_closed_form_right",
-          "orcvio_euler": "phi_euler"}
+          "orcvio_euler": "phi_euler",
+          "calib_imu": "_bias_intrinsic_sensitivity"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled():
+    fr.compile_jax(NAMES)
 
 
 @pytest.mark.parametrize("field", ["p", "R", "v"])
@@ -53,6 +62,23 @@ def test_branch_fired(name):
     for pkg in ("jax", "port"):
         assert r[pkg]["out"].n_update_features.sum() > 0
         assert r[pkg]["out"].zupt.sum() > 0
+
+
+def test_calib_intrinsics_match_jax():
+    """The fixture's IMU has identity intrinsics; calib_imu moves them
+    (ROADMAP section 3 item 19) alike in both packages."""
+    r = fr.run("calib_imu")
+    for pkg in ("jax", "port"):
+        f = r[pkg]["final"]
+        assert f["P"].shape == (22 + 6 * 8 + 6 + 24,) * 2
+        assert np.abs(f["Tg"] - np.eye(3)).max() > 1e-5
+        assert np.abs(f["As"]).max() > 1e-5
+        assert np.abs(f["Ma"] - np.eye(3)).max() > 1e-5
+        assert not np.triu(f["Ma"], 1).any(), "Ma stays lower triangular"
+    for key in ("Tg", "As", "Ma", "P"):
+        np.testing.assert_allclose(r["port"]["final"][key],
+                                   r["jax"]["final"][key], rtol=0, atol=1e-9,
+                                   err_msg=key)
 
 
 def _slab(seed, S=16):

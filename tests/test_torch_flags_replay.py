@@ -22,10 +22,12 @@ per variant of orcvio_tpu_torch/eval/bench_setup.py:VARIANTS in float32,
 and prints the init frame, the position error at frame 39 after aligning
 the pose at init (chip_smoke.pose_error_after_init), finiteness and the
 first non-finite frame; then chip_smoke.FLIGHT_VARIANTS once more with the
-filter in float64, and their position error at frame 83 (in flight) and
-updates after frame 39: chip_smoke.py's JAX_FLAGS. With
-``--jax-flag-matrix [--frames N]`` it runs the flag matrix's rows
-(flag_matrix.ROWS) over the whole 300-frame stream instead, the filter in
+filter in float64, and their position error at frame 83 (in flight),
+updates after frame 39 and, for the Schmidt variants, their first
+demotion and covariance blocks: chip_smoke.py's JAX_FLAGS (``--names a,b`` runs
+those variants alone). With ``--jax-flag-matrix [--frames N] [--rows
+a,b]`` it runs the flag matrix's rows (flag_matrix.ROWS) over the whole
+300-frame stream instead, the filter in
 float32, and prints each row's ATE (posyaw, all frames):
 flag_matrix.JAX_MATRIX.
 """
@@ -115,8 +117,9 @@ def jax_flag_runs(n_frames, runs):
     """The JAX package on the CPU over the first n_frames of
     chip_smoke.py's end-to-end stream: its tracker once in float32, then
     its vio run_vio per (variant, dtype) of `runs` (the stream's times and
-    IMU staged in the dtype). {(name, dtype): (p, R, v, n_upd, final P)}
-    and the stream."""
+    IMU staged in the dtype). {(name, dtype): (p, R, v, n_upd, final P,
+    per frame whether a Schmidt nuisance slot is in use)} and the
+    stream."""
     import jax
     import jax.numpy as jnp
 
@@ -153,9 +156,16 @@ def jax_flag_runs(n_frames, runs):
             R_b2c=jnp.asarray(pwriter.R_B2C_DOWN, dt),
             t_c_b=jnp.asarray(wc.t_c_b, dt)))
         chi2 = build_chi2_table(cfg, dt)
-        fs, o = jax.jit(lambda s, f: jvio.run_vio(cfg, s, f, chi2))(vs, frames)
+
+        def step(s, f, cfg=cfg, chi2=chi2):
+            s, o = jvio.vio_step(cfg, s, f, chi2)
+            return s, (o, jnp.any(s.filter.nui.valid))
+
+        fs, (o, nui) = jax.jit(lambda s, f: jax.lax.scan(step, s, f))(
+            vs, frames)
         out[name, dtype] = tuple(np.asarray(x, np.float64) for x in (
-            o.p, o.R, o.v, o.n_update_features, fs.filter.P))
+            o.p, o.R, o.v, o.n_update_features, fs.filter.P)) + (
+            np.asarray(nui),)
         print(f"{name} {dtype}: {time.perf_counter() - t0:.1f} s",
               file=sys.stderr, flush=True)
     return out, st
@@ -173,20 +183,23 @@ def first_nonfinite(*xs):
     return None if ok.all() else int(np.argmin(ok))
 
 
-def jax_flag_figures():
+def jax_flag_figures(names=None):
     """Per variant, its filter in float32 over the first cs.FLAG_FRAMES
     frames: the init frame, the position error at the last of them,
     whether p, R and v stayed finite there, the first frame whose pose is
     not finite and the update count; for cs.FLIGHT_VARIANTS, their filter
     in float64 to frame cs.FLIGHT_FRAMES - 1 (in flight): the init frame,
     the position error there and the updates after frame
-    cs.FLAG_FRAMES - 1."""
+    cs.FLAG_FRAMES - 1, and for the Schmidt variants the first frame that
+    holds a nuisance clone and cs.schmidt_blocks of the last frame's P.
+    `names`: the variants to run (default all)."""
     n, nf = cs.FLAG_FRAMES, cs.FLIGHT_FRAMES
-    runs, st = jax_flag_runs(nf, [(name, "float32") for name in bs.VARIANTS]
-                             + [(name, "float64")
-                                for name in cs.FLIGHT_VARIANTS])
+    names = list(bs.VARIANTS) if names is None else names
+    runs, st = jax_flag_runs(nf, [(name, "float32") for name in names]
+                             + [(name, "float64") for name in names
+                                if name in cs.FLIGHT_VARIANTS])
     figs = {}
-    for (name, dtype), (p, R, v, n_upd, P) in runs.items():
+    for (name, dtype), (p, R, v, n_upd, P, nui) in runs.items():
         k0 = init_frame(R)
         bad = first_nonfinite(p, R, v)
         if dtype == "float32":
@@ -205,18 +218,22 @@ def jax_flag_figures():
                     if k0 is not None and bad is None else None),
                 "finite": bad is None and bool(np.isfinite(P).all()),
                 "n_upd": int(n_upd[n:].sum())}
+            if "schmidt" in name:
+                figs[name]["flight"].update(
+                    first_demotion_frame=cs.first_true(nui),
+                    **cs.schmidt_blocks(P, bs.VARIANTS[name]["nuisance_cap"]))
     return figs
 
 
-def jax_flag_matrix(n):
+def jax_flag_matrix(n, rows=flag_matrix.ROWS):
     from orcvio_tpu.eval.trajectory import ate
     from orcvio_tpu_torch.math import quat
 
-    runs, st = jax_flag_runs(n, [(row, "float32") for row in flag_matrix.ROWS])
+    runs, st = jax_flag_runs(n, [(row, "float32") for row in rows])
     ft = np.asarray(st.frame_ts)[:n]
     q_gt = quat.from_rotation(torch.as_tensor(st.gt_R[:n])).numpy()
     figs = {}
-    for (name, _), (p, R, v, n_upd, P) in runs.items():
+    for (name, _), (p, R, v, n_upd, P, _) in runs.items():
         q = quat.from_rotation(torch.as_tensor(R)).numpy()
         try:
             m = ate(ft, p, q, ft, st.gt_p[:n], q_gt, alignment="posyaw")
@@ -231,11 +248,16 @@ def jax_flag_matrix(n):
 
 if __name__ == "__main__":
     if "--jax-flag-figures" in sys.argv:
-        print(json.dumps(jax_flag_figures()))
+        print(json.dumps(jax_flag_figures(
+            sys.argv[sys.argv.index("--names") + 1].split(",")
+            if "--names" in sys.argv else None)))
     elif "--jax-flag-matrix" in sys.argv:
         n = (int(sys.argv[sys.argv.index("--frames") + 1])
              if "--frames" in sys.argv else cs.E2E_FRAMES)
-        print(json.dumps({"frames": n, "rows": jax_flag_matrix(n)}))
+        rows = (sys.argv[sys.argv.index("--rows") + 1].split(",")
+                if "--rows" in sys.argv else flag_matrix.ROWS)
+        print(json.dumps({"frames": n, "rows": jax_flag_matrix(n, rows)}))
     else:
         sys.exit("usage: python tests/test_torch_flags_replay.py "
-                 "--jax-flag-figures | --jax-flag-matrix [--frames N]")
+                 "--jax-flag-figures [--names a,b] | --jax-flag-matrix "
+                 "[--frames N] [--rows a,b]")

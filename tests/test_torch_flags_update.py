@@ -36,6 +36,13 @@ from orcvio_tpu_torch.math import linalg as plinalg
 torch.set_num_threads(1)
 
 NAMES = ["update_qr", "update_chol", "update_information", "joseph"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled():
+    fr.compile_jax(NAMES + ["update_chol_no_zupt"])
+
+
 BRANCH = {"update_qr": "qr_compress", "update_chol": "chol_compress",
           "update_information": "information_update"}
 

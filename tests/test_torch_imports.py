@@ -5,7 +5,8 @@
   imageio, which the card's machine does not have.
 * Importing the whole port leaves jax out of sys.modules.
 * Entry points without device= run on CUDA, and raise where there is none.
-* Filter flags the port does not run yet raise NotImplementedError.
+* Every filter flag runs: the IMU intrinsics and Schmidt flags build a
+  filter state, a frame and a replay on the CPU.
 * Kernel wrappers given CPU tensors take the plain versions: their launch
   counters stay at 0 (K1 to K5).
 """
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 import orcvio_tpu_torch
-from orcvio_tpu_torch.config.core import FilterConfig, require_supported
+from orcvio_tpu_torch.config.core import FilterConfig
 from orcvio_tpu_torch import run_vio
 from orcvio_tpu_torch.dataio.euroc_writer import (make_stream,
                                                   write_euroc_dataset)
@@ -130,24 +131,49 @@ def test_entry_points_need_a_device(tmp_path):
                        np.zeros((1, 2, 3)), np.ones((1, 2), bool))
 
 
-def test_unported_filter_flags_raise():
+@pytest.mark.parametrize("flag", [
+    {"calib_imu": True}, {"use_schmidt": True}, {"nuisance_cap": 2},
+    {"use_schmidt": True, "nuisance_cap": 2},
+    {"calib_imu": True, "use_schmidt": True, "nuisance_cap": 2,
+     "schmidt_reference_semantics": True}], ids=str)
+def test_unported_filter_flags_raise(flag):
+    """The flags the port once refused (ROADMAP item 12 part 2) no longer
+    raise: a filter state in their layout, one filter frame from it, and a
+    replay on the CPU."""
+    from orcvio_tpu_torch.filter.pipeline import FrameInput, filter_step
+    from orcvio_tpu_torch.filter.hybrid import nui_base
+
+    cfg = FilterConfig(**{**FILTER_FLAGS, **flag, "sw_size": 4,
+                          "max_features": 8, "ekf_feature_cap": 2})
+    st = FilterState.create(cfg, torch.float64, device="cpu")
+    assert st.P.shape == (cfg.state_dim,) * 2
+    assert nui_base(cfg) == cfg.state_dim - 6 * cfg.nuisance_cap
+    S, M = 4, 3
+    frame = FrameInput(
+        t=torch.tensor(0.05, dtype=torch.float64),
+        imu_t=torch.linspace(0.0, 0.05, S, dtype=torch.float64),
+        imu_gyro=torch.full((S, 3), 0.01, dtype=torch.float64),
+        imu_acc=torch.tensor([[0.0, 0.0, 9.81]] * S, dtype=torch.float64),
+        imu_mask=torch.ones(S, dtype=torch.bool),
+        fids=torch.arange(M, dtype=torch.int32),
+        uvs=torch.zeros((M, 2), dtype=torch.float64),
+        uv_vels=torch.zeros((M, 2), dtype=torch.float64),
+        meas_mask=torch.ones(M, dtype=torch.bool))
+    st2, out = filter_step(cfg, st.replace(initialized=torch.tensor(True)),
+                           frame, build_chi2_table(cfg, torch.float64, "cpu"))
+    assert bool(torch.isfinite(st2.P).all() and torch.isfinite(out.p).all())
     tc = TrackerConfig(height=64, width=96, capacity=8, pyramid_levels=2)
-    for flag in ({"calib_imu": True}, {"use_schmidt": True},
-                 {"nuisance_cap": 2}, {"use_schmidt": True, "nuisance_cap": 2}):
-        cfg = FilterConfig(**{**FILTER_FLAGS, **flag})
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP item 12 part 2"):
-            make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3), device="cpu")
+    assert callable(make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3),
+                                    device="cpu"))
 
 
 @pytest.mark.parametrize("flags", [{}, FILTER_FLAGS], ids=["jax_defaults",
                                                             "bench"])
 def test_ported_filter_flags_are_supported(flags):
     """FilterConfig() (the JAX package's defaults: OrcVIO propagation, left
-    perturbation, Euler Phi, 3-d inverse depth) and the bench flags pass
-    require_supported and build a replay."""
+    perturbation, Euler Phi, 3-d inverse depth) and the bench flags build a
+    replay."""
     cfg = FilterConfig(**flags)
-    require_supported(cfg)
     tc = TrackerConfig(height=64, width=96, capacity=8, pyramid_levels=2)
     assert callable(make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3),
                                     device="cpu"))
