@@ -97,7 +97,29 @@ Phases:
     variants' new shapes (D = 142, D = 232, q = D = 172; D = 196, and
     D = 208 and 232 with the nuisance block [nb:, nb:] kept, nb = 172 and
     196), on seeded inputs at those D's with nb = D - 36 in float32 and
-    float64 (P's block kept bit for bit), and its times there.
+    float64 (P's block kept bit for bit), and its times there;
+11. many streams on one card (torch.func.vmap of the single-stream step,
+    B = 4): (a) the vmap rules of K1, K2 (level route) and K4 at the bench
+    shapes, each batched call one launch and each row bit-identical to
+    its single launch (K4 exactly symmetric, float32 and float64, q = 444
+    and 9, with nb < D), operands batched, shared and shared through a
+    batch stride of 0, and their times beside 4 single launches; (b) the
+    batched end-to-end replay with a float64 filter over the first 84
+    frames of phase 5's stream, rows whose trackers differ (row b with
+    RANSAC seed b starts its stream on frame 2 b; the batch runs from
+    frame 6), each against its single-stream replay frame by frame: the
+    tracker's ids and positions, its generator's state, init frame,
+    update counts and ZUPT flags identical, p within 1e-6 m, every two
+    rows apart; (c) the bench's batched configuration, float32 at B = 4
+    identical rows over the first 160 frames of phase 5's stream: ms per
+    batched frame and aggregate frames/s over 100 flight frames, K1, K2
+    and K4 launching as often per batched frame as per single frame (1,
+    4, 3), the rows bit-identical, row 0's ATE against JAX's over as many
+    frames, no host synchronisation in 20 batched frames, 4 profiled;
+    (d) the filter-only aggregate of bench.py:232-266 (16
+    synthetic sequences of 200 frames through parallel/replay.py's
+    sharded_replay_fn on a one-card mesh): frames/s and K4 launches a
+    batched frame; and no op run without a batching rule throughout.
 
 Then the seconds each phase took.
 
@@ -148,10 +170,12 @@ E2E_REPLAYS = 2  # timed replays of the window
 TRACKER_SCANS = 11  # timed scans of the known-flow stream
 # The JAX package's ATE on this stream: its make_e2e_replay in float32 on a
 # CPU (on the stream the port's make_stream makes on the CPU), posyaw
-# alignment over all frames, from `python tests/test_torch_e2e.py
-# --jax-bench-ate`.
+# alignment over all frames, and over the first 160 (phase 11's bench
+# pass), from `python tests/test_torch_e2e.py --jax-bench-ate --prefix
+# 160`.
 JAX_E2E = {"ate_m": 0.051326269113335064, "init_frame": 20,
-           "filter_frames": 279, "n_upd_total": 1274, "zupt_frames": 43}
+           "filter_frames": 279, "n_upd_total": 1274, "zupt_frames": 43,
+           "ate_m_160": 0.016229971057872168}
 # The port passes where its ATE is at most this much above the JAX figure,
 # about twice it: the RANSAC draws differ between the packages, so the two
 # runs track other features and differ as two seeds of one filter do.
@@ -315,6 +339,34 @@ JAX_FLAGS = {
                    "first_demotion_frame": 78,
                    "cross_fro": 0.005472135520824823,
                    "nn_fro": 0.0026937460045343632}}}
+# Many streams on one card (phase 11): BATCH streams as one batch, as
+# bench.py's E2E_BATCH; the float64 rows over ROW_FRAMES frames of phase
+# 5's stream (init on frames 20-26, the flight's first visual updates on
+# frames 77-82), each within ROW_TOL_M of its single-stream replay (vmap
+# batches the products, whose sums round in another order, some 1e-16
+# relative); the float32 bench replay's timed window starts at BATCH_START,
+# after the frame following init (the last that reads the flags); the
+# filter-only aggregate of bench.py:232-266 at its B and frame count.
+BATCH = 4
+ROW_FRAMES = 84
+ROW_TOL_M = 1e-6
+# Row b's stream starts on frame ROW_STARTS[b], so the rows' trackers
+# differ: even frames, since the tracker detects on even frames only and a
+# stream whose first frame holds no features never initializes (static
+# init keeps its first frame as the reference). Their positions against
+# the single streams': ids and decisions must be identical, so any
+# difference is rounding.
+ROW_STARTS = (0, 2, 4, 6)
+ROW_XY_TOL_PX = 1e-3
+BATCH_START = 25
+# The bench pass (c): init, the timed window, 20 frames under sync debug
+# mode and BATCH_PROFILE_FRAMES profiled (after as many more) fit in its
+# BATCH_FRAMES frames; its ATE against JAX's over as many
+# (JAX_E2E["ate_m_160"]).
+BATCH_FRAMES = 160
+BATCH_PROFILE_FRAMES = 4
+FILTER_AGG_B = 16
+FILTER_AGG_FRAMES = 200
 K3_FRAMES = 3   # frame pairs of the known-flow stream for the K3 path
 RACE_REPS = 5   # timed passes of the race, as scripts/race_extract.py
 
@@ -1327,6 +1379,506 @@ def rotations_to_quat(R):
     return quat.from_rotation(torch.as_tensor(R, dtype=torch.float64)).numpy()
 
 
+def batched_rule_checks(dev, bench, wc):
+    """Phase 11 (a): each kernel's vmap rule on the card at B = BATCH and
+    the bench shapes, against B single launches of the same rows: K1
+    (ORB's 440 windows a row) and K2 (the level route, 200 features a row)
+    bit for bit, K4 bit for bit and exactly symmetric in float32 and
+    float64 at q = 444 and 9, with nb = D and nb < D; operands batched,
+    shared (in_dim None) and shared through a batch stride of 0 (what vmap
+    hands back for an unbatched output). One launch a batched call. Then
+    each batched entry's time beside B single launches (and, for K4, one
+    torch.baddbmm of the same product) and its bound. Returns {kernel:
+    its "batched" entry of the kernels line}."""
+    import torch
+
+    from orcvio_tpu_torch.frontend import klt
+    from orcvio_tpu_torch.frontend.image import build_pyramid, equalize_hist
+    from orcvio_tpu_torch.ops.cov_update import cov_update
+    from orcvio_tpu_torch.ops.dma_gather import dma_gather_tiles
+    from orcvio_tpu_torch.ops.lk_pallas import lk_level_fused, lk_level_src
+    from orcvio_tpu_torch.ops.window_gather import window_origins
+
+    B = BATCH
+    vmap = torch.func.vmap
+
+    def row(x, d, b):
+        return x if d is None else x[b]
+
+    def one_launch(counter, fn, what):
+        """fn() under a launch counter: the result, checked to be one
+        launch."""
+        n = counter.launches
+        out = fn()
+        torch.cuda.synchronize()
+        check(counter.launches == n + 1,
+              f"batched {what}: {counter.launches - n} launch(es) == 1")
+        return out
+
+    # the bench stream's frames 60-63 (flight), equalized, as pyramids
+    frames = [equalize_hist(torch.as_tensor(bench.images[k]).to(
+        dev, torch.float32)) for k in range(60, 60 + B + 1)]
+    pyrs = [klt.prepare_pyramid(build_pyramid(f, 3)) for f in frames]
+    H, W = frames[0].shape
+    rng = np.random.default_rng(21)
+    xy = torch.as_tensor(rng.uniform([24, 24], [W - 24, H - 24],
+                                     size=(B, 200, 2)),
+                         dtype=torch.float32, device=dev)
+    shift = torch.tensor([1.3, -0.7], device=dev)
+    out = {}
+
+    # K2, level 0: row b tracks its own 200 features from frame 60 to 61
+    # (levels shared, as on the replay's route) or from frame 60 + b to
+    # 61 + b (levels batched)
+    def k2_row(b, a0, a1):
+        lw0 = klt.gather_level(a0, xy[b], cut=False)
+        lw1 = klt.gather_level(a1, xy[b] + shift, cut=False)
+        aux = klt._level_aux(lw0, lw1, xy[b], xy[b] + shift, 15)[0]
+        return lw0.level, lw0.offset, lw1.level, lw1.offset, aux
+
+    shared_rows = [k2_row(b, pyrs[0][0], pyrs[1][0]) for b in range(B)]
+    own_rows = [k2_row(b, pyrs[b][0], pyrs[b + 1][0]) for b in range(B)]
+    k2_exact = True
+    k2_cases = {"levels shared": (shared_rows, (None, 0, None, 0, 0)),
+                "levels batched": (own_rows, (0, 0, 0, 0, 0)),
+                "level 0 stride 0": (shared_rows, (0, 0, None, 0, 0))}
+    for name, (rows, dims) in k2_cases.items():
+        args = [r[0] if d is None else torch.stack(r)
+                for r, d in zip(zip(*rows), dims)]
+        if name == "level 0 stride 0":
+            args[0] = args[0][0].expand(B, *args[0].shape[1:])
+        call = lambda: vmap(  # noqa: E731
+            lambda *a: lk_level_src(*a, 10, 15, klt.KLT_EPS),
+            in_dims=dims)(*args)
+        got = one_launch(lk_level_fused, call, f"K2 {name}")
+        want = torch.stack([lk_level_src(*(row(x, d, b) for x, d in
+                                           zip(args, dims)), 10, 15,
+                                         klt.KLT_EPS) for b in range(B)])
+        same = bool(torch.equal(got, want))
+        k2_exact &= same
+        check(same, f"batched K2 {name}: B = {B} rows of 200 features "
+                    "bit-identical to single launches")
+    args = [r[0] if d is None else torch.stack(r) for r, d in
+            zip(zip(*shared_rows), k2_cases["levels shared"][1])]
+    dims = k2_cases["levels shared"][1]
+    out["lk_level"] = {
+        "B": B, "shape": f"{B} x 200 features on shared levels "
+                         f"{tuple(args[0].shape)}",
+        "bit_identical_to_single_launches": k2_exact,
+        "ms": time_ms(lambda: vmap(lambda *a: lk_level_src(
+            *a, 10, 15, klt.KLT_EPS), in_dims=dims)(*args)),
+        "single_launches_ms": time_ms(lambda: [lk_level_src(
+            *(row(x, d, b) for x, d in zip(args, dims)), 10, 15,
+            klt.KLT_EPS) for b in range(B)])}
+
+    # K1: ORB's 440 windows a row at level 0 (200 tracked + 240 candidates)
+    centers = torch.cat([xy, xy[:, :120] + 40.0, xy[:, :120] - 40.0], 1)
+    origins = [window_origins(pyrs[b][0], centers[b], -16, 48, 256)[:2]
+               for b in range(B)]
+    r0, c0 = (torch.stack(x) for x in zip(*origins))
+    b0 = torch.zeros_like(r0)
+    imgs_b = torch.stack([pyrs[b][0].padded for b in range(B)])
+    k1_exact = True
+    for name, imgs, d in (("image shared", pyrs[0][0].padded, None),
+                          ("images batched", imgs_b, 0)):
+        call = lambda: vmap(lambda *a: dma_gather_tiles(  # noqa: E731
+            *a, 6, 2), in_dims=(d, 0, 0, 0))(imgs, r0, c0, b0)
+        got = one_launch(dma_gather_tiles, call, f"K1 {name}")
+        want = torch.stack([dma_gather_tiles(row(imgs, d, b), r0[b], c0[b],
+                                             b0[b], 6, 2) for b in range(B)])
+        same = bool(torch.equal(got, want))
+        k1_exact &= same
+        check(same, f"batched K1 {name}: B = {B} rows of 440 windows "
+                    "bit-identical to single launches")
+    img0 = pyrs[0][0].padded
+    out["window_gather"] = {
+        "B": B, "shape": f"{B} x 440 windows (48, 256) from shared "
+                         f"{tuple(img0.shape)}",
+        "bit_identical_to_single_launches": k1_exact,
+        "ms": time_ms(lambda: vmap(lambda *a: dma_gather_tiles(*a, 6, 2),
+                                   in_dims=(None, 0, 0, 0))(img0, r0, c0,
+                                                            b0)),
+        "single_launches_ms": time_ms(lambda: [dma_gather_tiles(
+            img0, r0[b], c0[b], b0[b], 6, 2) for b in range(B)]),
+        "bound_ms": bound_ms(sum(k1_needed_bytes(img0, r0[b], c0[b], 6, 2)
+                                 for b in range(B)), 0)[0]}
+
+    # K4 at the bench's D = 172: rows of seeded inputs
+    k4_exact = True
+    D = 172
+    for dtype in (torch.float32, torch.float64):
+        for q in (444, 9):
+            rows = [k4_inputs(D, q, 300 + b, dtype, dev) for b in range(B)]
+            P, K = (torch.stack([r[i] for r in rows]) for i in (0, 1))
+            HP = torch.stack([r[2] @ r[0] for r in rows])
+            for name, nb, dims, Pb, HPb in (
+                    ("batched", D, (0, 0, 0), P, HP),
+                    ("nb", D - 36, (0, 0, 0), P, HP),
+                    ("HP shared", D, (0, 0, None), P, HP[0]),
+                    ("P stride 0", D, (0, 0, 0), P[0].expand(B, D, D), HP)):
+                call = lambda: vmap(  # noqa: E731
+                    lambda p, k, hp: cov_update(p, k, None, hp, nb),
+                    in_dims=dims)(Pb, K, HPb)
+                what = f"K4 {name} q={q} {str(dtype)[6:]}"
+                got = one_launch(cov_update, call, what)
+                want = torch.stack([cov_update(Pb[b], K[b], None,
+                                               row(HPb, dims[2], b), nb)
+                                    for b in range(B)])
+                same = bool(torch.equal(got, want)
+                            and torch.equal(got, got.mT)
+                            and torch.equal(got[:, nb:, nb:],
+                                            Pb[:, nb:, nb:]))
+                k4_exact &= same
+                check(same, f"batched {what} nb={nb}: B = {B} rows "
+                            "bit-identical to single launches, exactly "
+                            "symmetric")
+            if dtype == torch.float32 and q == 444:
+                k4_args = (P, K, HP)
+    P, K, HP = k4_args
+    q = K.shape[-1]
+    nbytes = 4 * B * (2 * D * D + 2 * D * q)
+    bnd, by = bound_ms(nbytes, B * 2 * D * D * q)
+    out["cov_update"] = {
+        "B": B, "shape": f"{B} x P ({D},{D}), K ({D},{q}), HP ({q},{D}) "
+                         "float32",
+        "bit_identical_to_single_launches": k4_exact,
+        "ms": time_ms(lambda: vmap(lambda p, k, hp: cov_update(
+            p, k, None, hp))(P, K, HP)),
+        "single_launches_ms": time_ms(lambda: [cov_update(
+            P[b], K[b], None, HP[b]) for b in range(B)]),
+        "library_ms": time_ms(lambda: torch.baddbmm(P, K, HP, alpha=-1)),
+        "library": "torch.baddbmm(P, K, HP, alpha=-1)",
+        "bound_ms": bnd, "bound_by": by}
+    return out
+
+
+def frame_by_frame(replay, state, staged, ks):
+    """replay over the frames ks one call a frame: the final state, the
+    outs of all frames, and the tracker's (fid, xy, uvn) after each."""
+    import torch
+
+    tracks, outs = [], []
+    for k in ks:
+        state, o = replay(*state, staged, frames=[k])
+        tracks.append((state[0].fid, state[0].xy, state[0].uvn))
+        outs.append(o)
+    dim = outs[0]["p"].dim() - 2  # the frame axis: 1 batched, 0 single
+    return state, {key: torch.cat([o[key] for o in outs], dim)
+                   for key in outs[0]}, tracks
+
+
+def batched_e2e_rows(dev, bench, wc):
+    """Phase 11 (b): the batched end-to-end replay, float64 filter (the
+    tracker in float32: the LK kernels take float32 only), B = BATCH rows
+    whose trackers differ: row b (RANSAC seed b) starts its stream on
+    frame ROW_STARTS[b] of phase 5's stream, so from the frame the batch
+    starts on each row tracks other features under other ids. The batch
+    runs to frame ROW_FRAMES (init, then the flight's first visual
+    updates), one call a frame, each row drawing its noise from its own
+    generator. Each row against its single-stream replay on the card,
+    frame by frame: the tracker's ids identical and positions within
+    ROW_XY_TOL_PX, the same init frame, identical update counts and ZUPT
+    flags, p within ROW_TOL_M, and at the end the same next id, descriptors
+    and generator state. Returns the report's entry."""
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.dataio.euroc_writer import R_B2C_DOWN
+    from orcvio_tpu_torch.eval.staged import (make_batched_e2e_replay,
+                                              make_e2e_replay, stage_sequence)
+    from orcvio_tpu_torch.frontend.tracker import (TrackerConfig,
+                                                   TrackerState,
+                                                   stack_tracker_states)
+    from orcvio_tpu_torch.tree import tree_stack
+    from orcvio_tpu_torch.vio import VioState
+
+    B, TR, S0 = BATCH, ROW_FRAMES, max(ROW_STARTS)
+    f32, f64 = torch.float32, torch.float64
+    etc = TrackerConfig(**TRACKER, K=wc.cam.K)
+    cfg = FilterConfig(**BENCH_FILTER)
+    staged = stage_sequence(*(x[:TR] for x in bench_inputs(bench)), f64,
+                            device=dev)
+    args = (cfg, etc, R_B2C_DOWN, wc.t_c_b, f64, dev)
+    single, batched = make_e2e_replay(*args), make_batched_e2e_replay(*args)
+
+    trk = f32 if dev.type == "cuda" else f64  # the replays' tracker dtype
+
+    def fresh(b):
+        return (TrackerState.create(etc, trk, seed=b, device=dev),
+                VioState.create(cfg, etc.capacity, f64, device=dev))
+
+    pre = [fresh(b) if s == S0 else
+           single(*fresh(b), staged, frames=range(s, S0))[0]
+           for b, s in enumerate(ROW_STARTS)]
+    t0 = time.perf_counter()
+    (tsb, _), outs, tracks = frame_by_frame(batched, (
+        stack_tracker_states([x[0] for x in pre]),
+        tree_stack([x[1] for x in pre])), staged, range(S0, TR))
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [frame_by_frame(single, fresh(b), staged, range(s, TR))
+               for b, s in enumerate(ROW_STARTS)]
+    torch.cuda.synchronize()
+    singles_s = time.perf_counter() - t0
+    rows = []
+    for b, ((ts, _), one, one_tracks) in enumerate(singles):
+        s = ROW_STARTS[b]
+        one = {key: v[S0 - s:] for key, v in one.items()}
+        k0 = first_true(outs["initialized"][b].cpu().numpy())
+        k1 = first_true(one["initialized"].cpu().numpy())
+        same = {f: bool(torch.equal(outs[f][b], one[f]))
+                for f in ("n_upd", "zupt")}
+        err = float((outs["p"][b] - one["p"]).abs().max())
+        n_upd = int(one["n_upd"].sum())
+        fids = all(bool(torch.equal(x[0][b], y[0]))
+                   for x, y in zip(tracks, one_tracks[S0 - s:]))
+        xy_err = max(float((x[1][b] - y[1]).abs().max())
+                     for x, y in zip(tracks, one_tracks[S0 - s:]))
+        end = {"next_id": bool(torch.equal(tsb.next_id[b], ts.next_id)),
+               "desc": bool(torch.equal(tsb.desc[b], ts.desc)),
+               "generator": bool(torch.equal(tsb.rng[b].get_state(),
+                                             ts.rng.get_state()))}
+        # row 0's stream is phase 5's: it inits on JAX's frame
+        jax_k0 = JAX_E2E["init_frame"] if s == 0 else None
+        also = "" if jax_k0 is None else f" == JAX's {jax_k0}"
+        check(k0 is not None and k0 == k1 and all(same.values())
+              and err <= ROW_TOL_M and n_upd > 0
+              and jax_k0 in (None, S0 + k0),
+              f"batched row {b} (seed {b}, from frame {s}), float64: init "
+              f"on frame {None if k0 is None else S0 + k0} == its single "
+              f"stream's{also}, n_upd and zupt identical {same}, {n_upd} "
+              f"visual updates, p within {err:.2e} <= {ROW_TOL_M} m")
+        check(fids and xy_err <= ROW_XY_TOL_PX and all(end.values()),
+              f"batched row {b}: tracker ids identical to its single "
+              f"stream's on all {len(tracks)} frames ({fids}), positions "
+              f"within {xy_err:.2e} <= {ROW_XY_TOL_PX} px, at the end "
+              f"{end}")
+        rows.append({"seed": b, "start_frame": s,
+                     "init_frame": None if k0 is None else S0 + k0,
+                     "p_err_m": err, "xy_err_px": xy_err,
+                     "identical": {**same, "fids": fids, **end},
+                     "n_upd_total": n_upd})
+    apart = {f"{a},{b}": sum(not torch.equal(x[0][a], x[0][b])
+                             and not torch.equal(x[1][a], x[1][b])
+                             for x in tracks)
+             for a in range(B) for b in range(a + 1, B)}
+    diff = min(float((outs["p"][b] - outs["p"][a]).abs().max())
+               for a in range(B) for b in range(a + 1, B))
+    check(min(apart.values()) >= len(tracks) // 3
+          and diff > 10 * ROW_TOL_M,
+          f"batched rows: every two rows' trackers apart (other ids and "
+          f"positions) on {min(apart.values())} of {len(tracks)} frames at "
+          f"least, their p by {diff:.3e} m (> 10 x {ROW_TOL_M} m), so a row "
+          "mixed into another would fail its parity")
+    return {"B": B, "frames": [S0, TR], "starts": list(ROW_STARTS),
+            "dtype": "float64 filter, float32 tracker", "rows": rows,
+            "rows_apart_frames": apart, "rows_min_p_diff_m": diff,
+            "batched_s": batched_s, "singles_s": singles_s}
+
+
+def batched_bench(dev, bench, wc, gt_q, frame_ts):
+    """Phase 11 (c): the bench's batched configuration, the float32
+    end-to-end replay at B = BATCH identical rows (as bench.py:219-221
+    stacks them) over the first BATCH_FRAMES frames of phase 5's stream,
+    in one pass: frames up to BATCH_START, then E2E_WINDOW flight frames
+    timed with CUDA events and their launches counted (1 K1, 4 K2, 3 K4 a
+    batched frame, as a single stream's), then 20 under sync debug mode,
+    BATCH_PROFILE_FRAMES (after as many more) profiled, and the rest; the
+    rows bit-identical; row 0's ATE over the pass within ATE_MARGIN_M of
+    JAX's over as many frames. Returns the report's entry."""
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.dataio.euroc_writer import R_B2C_DOWN
+    from orcvio_tpu_torch.eval.staged import (make_batched_e2e_replay,
+                                              stage_sequence)
+    from orcvio_tpu_torch.eval.trajectory import ate
+    from orcvio_tpu_torch.tree import tree_stack
+    from orcvio_tpu_torch.frontend.tracker import (TrackerConfig,
+                                                   TrackerState,
+                                                   stack_tracker_states)
+    from orcvio_tpu_torch.math import quat
+    from orcvio_tpu_torch.vio import VioState
+
+    B, TE, n = BATCH, BATCH_FRAMES, BATCH_PROFILE_FRAMES
+    f32 = torch.float32
+    etc = TrackerConfig(**TRACKER, K=wc.cam.K)
+    cfg = FilterConfig(**BENCH_FILTER)
+    staged = stage_sequence(*(x[:TE] for x in bench_inputs(bench)), f32,
+                            device=dev)
+    replay = make_batched_e2e_replay(cfg, etc, R_B2C_DOWN, wc.t_c_b, f32,
+                                     device=dev)
+    state = (stack_tracker_states([TrackerState.create(etc, f32, seed=0,
+                                                       device=dev)
+                                   for _ in range(B)]),
+             tree_stack([VioState.create(cfg, etc.capacity, f32,
+                                         device=dev)] * B))
+    parts = []
+
+    def run(ks):
+        """The frames ks, on from the pass's state."""
+        nonlocal state
+        state, o = replay(*state, staged, frames=ks)
+        parts.append(o)
+
+    window = range(BATCH_START, BATCH_START + E2E_WINDOW)
+    check(window.stop + 20 + 2 * n <= TE,
+          f"batched e2e: the pass's {TE} frames hold the window, the sync "
+          "check and the profile")
+    run(range(BATCH_START))
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    run(window)
+    e1.record()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    ms = e0.elapsed_time(e1) / len(window)
+    k = window.stop
+    check_no_syncs(lambda: run(range(k, k + 20)),
+                   f"20 batched end-to-end frames after init (B = {B})")
+    later = iter((range(k + 20, k + 20 + n),
+                  range(k + 20 + n, k + 20 + 2 * n)))
+    prof = profile_frames(lambda: run(next(later)), n)
+    run(range(k + 20 + 2 * n, TE))
+    outs = {key: torch.cat([p[key] for p in parts], 1) for key in parts[0]}
+    want = {"window_gather": 1, "lk_level": 4, "cov_update": 3}
+    per_frame = {key: v / len(window) for key, v in launches.items()}
+    check(per_frame == want,
+          f"batched e2e: launches per batched frame {per_frame} == a single "
+          f"stream's {want} (B = {B})")
+    same = all(bool(torch.equal(outs[key][b], outs[key][0])) for key in outs
+               for b in range(1, B))
+    check(same, f"batched e2e: the {B} identical rows' outputs are "
+                "bit-identical")
+    k0 = first_true(outs["initialized"][0].cpu().numpy())
+    check(k0 == JAX_E2E["init_frame"] and k0 + 2 <= BATCH_START,
+          f"batched e2e: init on frame {k0} == JAX's "
+          f"{JAX_E2E['init_frame']}, before the timed window "
+          f"({BATCH_START})")
+    p = outs["p"][0].double().cpu().numpy()
+    q = quat.from_rotation(outs["R"][0].double()).cpu().numpy()
+    finite = bool(np.isfinite(p).all() and np.isfinite(q).all())
+    try:
+        m = ate(frame_ts[:TE], p, q, frame_ts[:TE], bench.gt_p[:TE],
+                gt_q[:TE], "posyaw")
+    except ValueError as e:
+        m = {"rmse_trans": float("nan"), "error": str(e)}
+    jax_ate = JAX_E2E[f"ate_m_{TE}"]
+    ate_limit = jax_ate + ATE_MARGIN_M
+    check(p.shape[0] == TE and finite
+          and bool(m["rmse_trans"] <= ate_limit),
+          f"batched e2e: row 0's ATE {m['rmse_trans']:.4f} m (posyaw) over "
+          f"{p.shape[0]} frames <= JAX's over as many, {jax_ate:.4f} m, + "
+          f"{ATE_MARGIN_M}")
+    return {"B": B, "frames": TE, "init_frame": k0,
+            "window": [window.start, window.stop],
+            "ms_per_batched_frame": ms,
+            "aggregate_frames_per_s": B * 1e3 / ms,
+            "launches": launches, "launches_per_batched_frame": per_frame,
+            "rows_bit_identical": same, "ate_m": m["rmse_trans"],
+            "jax_ate_m": jax_ate, "ate_limit_m": ate_limit,
+            "n_upd_total_row0": int(outs["n_upd"][0].sum()),
+            "profile": prof}
+
+
+def batched_filter_aggregate(dev):
+    """Phase 11 (d): bench.py:232-266's filter-only aggregate through the
+    port's sharded_replay_fn on a one-card mesh: FILTER_AGG_B sequences of
+    the port's synthetic.generate frames (its sizes: sw 20, 150 features,
+    400 landmarks, IMU slab 12), float32, FILTER_AGG_FRAMES frames, from
+    the initialized state __graft_entry__._build makes. One timed run on
+    the host clock: aggregate frames/s and K4 launches a batched frame."""
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.dataio import synthetic as syn
+    from orcvio_tpu_torch.filter.pipeline import FrameInput, build_chi2_table
+    from orcvio_tpu_torch.filter.state import FilterState
+    from orcvio_tpu_torch.tree import tree_stack
+    from orcvio_tpu_torch.parallel.replay import make_mesh, sharded_replay_fn
+
+    B, T = FILTER_AGG_B, FILTER_AGG_FRAMES
+    f32 = torch.float32
+    cfg = FilterConfig(sw_size=20, max_features=150, max_track_len=6,
+                       imu_slab=12, observation_noise=0.004,
+                       tri_translation_threshold=-1.0)
+    sim = syn.SimConfig(n_frames=T, n_landmarks=400, max_obs=60,
+                        imu_slab=12, seed=0)
+    R_b2c = np.asarray([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    t_c_b = np.asarray([0.05, 0.02, 0.0])
+    frames = syn.generate(sim, R_b2c, t_c_b, f32, device=dev).frames
+    st = FilterState.create(cfg, f32, device=dev)
+    R0, p0, v0 = (torch.as_tensor(x).to(dev, f32)
+                  for x in syn.initial_state_np(sim))
+    imu = st.imu.replace(R=R0, p=p0, v=v0)
+    st = st.replace(imu=imu, imu_fej_now=imu, imu_old=imu,
+                    R_b2c=torch.as_tensor(R_b2c).to(dev, f32),
+                    t_c_b=torch.as_tensor(t_c_b).to(dev, f32),
+                    initialized=torch.ones((), dtype=torch.bool, device=dev))
+    states = tree_stack([st] * B)
+    frames_b = FrameInput(*(x.expand(B, *x.shape) for x in frames))
+    mesh = make_mesh(1)
+    fn = sharded_replay_fn(cfg, mesh)
+    chi2 = build_chi2_table(cfg, f32, dev)
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    final, outs = fn(states, frames_b, chi2)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    k4 = launch_counts()["cov_update"]
+    finite = bool(torch.isfinite(outs.p).all()
+                  and torch.isfinite(final.P).all())
+    same = bool(torch.equal(outs.p, outs.p[:1].expand_as(outs.p)))
+    check(finite and same and k4 > 0,
+          f"filter aggregate: B = {B} x {T} frames finite, rows "
+          f"bit-identical, K4 {k4 / T:.2f} launches a batched frame")
+    return {"B": B, "frames": T, "devices": len(mesh), "seconds": s,
+            "aggregate_frames_per_s": B * T / s,
+            "ms_per_batched_frame": s * 1e3 / T,
+            "k4_launches": k4, "k4_per_batched_frame": k4 / T,
+            "n_upd_total_row0": int(outs.n_update_features[0].sum())}
+
+
+def batched_phase(dev, bench, wc, gt_q, frame_ts):
+    """Phase 11, many streams on one card: (a) the kernels' vmap rules,
+    (b) the float64 rows against their single streams, (c) the bench's
+    batched end-to-end configuration, (d) the filter-only aggregate. The
+    vmap fallback's warning is on throughout: an op without a batching rule
+    (run row by row) fails the phase."""
+    import torch
+
+    functorch = torch._C._functorch
+    functorch._set_vmap_fallback_warning_enabled(True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            report, seconds = {}, {}
+            for name, part in (
+                    ("rules", lambda: batched_rule_checks(dev, bench, wc)),
+                    ("rows", lambda: batched_e2e_rows(dev, bench, wc)),
+                    ("e2e", lambda: batched_bench(dev, bench, wc, gt_q,
+                                                  frame_ts)),
+                    ("filter_aggregate",
+                     lambda: batched_filter_aggregate(dev))):
+                t0 = time.perf_counter()
+                report[name] = part()
+                seconds[name] = time.perf_counter() - t0
+            report["seconds"] = seconds
+        finally:
+            functorch._set_vmap_fallback_warning_enabled(False)
+    fallbacks = sorted({str(w.message)[:160] for w in caught
+                        if "batching rule" in str(w.message)})
+    check(not fallbacks, f"batched: no op ran without a batching rule "
+                         f"({fallbacks[:3]})")
+    report["ops_without_batching_rule"] = fallbacks
+    return report
+
+
 def main() -> int:
     t_lap, laps = [time.perf_counter()], {}
 
@@ -2098,6 +2650,16 @@ def main() -> int:
             kern["launches_flags"] = flag_tracker[kern["name"]]
 
     lap("10 flag variants")
+    # ---------------- 11. many streams on one card ----------------
+    batched = batched_phase(dev, bench, wc, q_gt, frame_ts)
+    emit({"batched": batched})
+    for kern in kernels:
+        if kern["name"] in batched["rules"]:
+            kern["batched"] = batched["rules"][kern["name"]]
+            kern["launches_batched"] = batched["e2e"]["launches"][
+                kern["name"]]
+
+    lap("11 batched")
     emit({"phase_seconds": laps, "total_s": sum(laps.values())})
     for kern in kernels:  # None where the library was built before this run
         kern["ptxas"] = ptxas.get(Path(kern["source"]).stem)

@@ -9,6 +9,14 @@
 //
 //   P (D, D), K (D, q), HP (q, D), out (D, D), row-major, float or double.
 //
+// The batched entry (many filters on one card: torch.func.vmap of the
+// single-stream step) runs B such updates in one launch: the grid gains
+// the batch (blockIdx.y of the cluster kernel, blockIdx.z of the small
+// one) and each row's P, K and HP are reached through a batch stride, 0
+// for an operand the rows share; out is (B, D, D). nb is one value for
+// the batch. Within a row the arithmetic is the single launch's, so a row
+// equals its single launch bit for bit.
+//
 // The nb entry (the Schmidt update, nb = D - 6 nuisance_cap): the entries
 // whose row and column are both >= nb keep 0.5 (P(r, c) + P(c, r)), which
 // is P itself for a symmetric P; every other entry is as above. A tile
@@ -196,8 +204,14 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cov_update_kernel(const T* __restrict__ P, const T* __restrict__ K,
                   const T* __restrict__ HP, T* __restrict__ out, int D, int q,
-                  int nb, int nt, int vec) {
+                  int nb, int nt, int vec, long long sP, long long sK,
+                  long long sHP) {
   constexpr int kStages = stages<T>();
+  // this block's row of the batch
+  P += blockIdx.y * sP;
+  K += blockIdx.y * sK;
+  HP += blockIdx.y * sHP;
+  out += blockIdx.y * (long long)D * D;
   extern __shared__ __align__(16) unsigned char smem[];
   Stage<T>* ring = reinterpret_cast<Stage<T>*>(smem);
   Partial& part = *reinterpret_cast<Partial*>(smem);
@@ -327,7 +341,7 @@ cov_update_kernel(const T* __restrict__ P, const T* __restrict__ K,
   PHASE(t3);
   cluster.sync();  // every rank keeps its partials until all have read them
 #ifdef KPHASES
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && blockIdx.y == 0) {  // the batch's first row
     PHASE(t4);
     long long* s = g_phase[blockIdx.x];
     s[0] = t1 - t0;  // q loop: copies and DMMA
@@ -352,7 +366,12 @@ template <typename T>
 __global__ void __launch_bounds__(kSmallThreads)
 cov_update_small_kernel(const T* __restrict__ P, const T* __restrict__ K,
                         const T* __restrict__ HP, T* __restrict__ out, int D,
-                        int q, int nb) {
+                        int q, int nb, long long sP, long long sK,
+                        long long sHP) {
+  P += blockIdx.z * sP;  // this block's row of the batch
+  K += blockIdx.z * sK;
+  HP += blockIdx.z * sHP;
+  out += blockIdx.z * (long long)D * D;
   __shared__ double ks[2][kSmall][kChunk + 1];   // K rows of tiles i, j
   __shared__ double hs[2][kChunk][kSmall + 1];   // HP columns of tiles i, j
   const int i0 = blockIdx.y * kSmall, j0 = blockIdx.x * kSmall;
@@ -388,22 +407,26 @@ cov_update_small_kernel(const T* __restrict__ P, const T* __restrict__ K,
         (T)(0.5 * (((double)p_rc - a_rc) + ((double)p_cr - a_cr)));
 }
 
+// every row of the operand starts on a 16-byte boundary
 template <typename T>
-bool aligned16(const T* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned16(const T* p, long long stride) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         stride * (long long)sizeof(T) % 16 == 0;
 }
 
 template <typename T>
 int launch(const T* P, const T* K, const T* HP, T* out, int D, int q, int nb,
-           int device, void* stream) {
+           int B, long long sP, long long sK, long long sHP, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (D == 0) return 0;
+  if (D == 0 || B == 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
   if (q <= kChunk) {
     const int ns = (D + kSmall - 1) / kSmall;
     cov_update_small_kernel<T>
-        <<<dim3(ns, ns), kSmallThreads, 0, (cudaStream_t)stream>>>(
-            P, K, HP, out, D, q, nb);
+        <<<dim3(ns, ns, B), kSmallThreads, 0, (cudaStream_t)stream>>>(
+            P, K, HP, out, D, q, nb, sP, sK, sHP);
     return (int)cudaGetLastError();
   }
   constexpr size_t bytes = smem_bytes<T>();
@@ -418,14 +441,14 @@ int launch(const T* P, const T* K, const T* HP, T* out, int D, int q, int nb,
     opted[device] = true;
   }
   constexpr int W = 16 / sizeof(T);
-  const int vec = (q % W == 0 && aligned16(K) ? kVecK : 0) |
-                  (D % W == 0 && aligned16(HP) ? kVecHP : 0);
+  const int vec = (q % W == 0 && aligned16(K, sK) ? kVecK : 0) |
+                  (D % W == 0 && aligned16(HP, sHP) ? kVecHP : 0);
   const int nt = (D + kTile - 1) / kTile;
   const int nch = (q + kChunk - 1) / kChunk;
   int cs = nch / kMinChunks;
   cs = cs < 1 ? 1 : (cs > kMaxCluster ? kMaxCluster : cs);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nt * (nt + 1) / 2 * cs);
+  cfg.gridDim = dim3(nt * (nt + 1) / 2 * cs, B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = (cudaStream_t)stream;
@@ -437,7 +460,7 @@ int launch(const T* P, const T* K, const T* HP, T* out, int D, int q, int nb,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, cov_update_kernel<T>, P, K, HP, out, D, q,
-                           nb, nt, vec);
+                           nb, nt, vec, sP, sK, sHP);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -447,11 +470,32 @@ int launch(const T* P, const T* K, const T* HP, T* out, int D, int q, int nb,
 extern "C" int cov_update_f32(const float* P, const float* K, const float* HP,
                               float* out, int D, int q, int nb, int device,
                               void* stream) {
-  return launch<float>(P, K, HP, out, D, q, nb, device, stream);
+  return launch<float>(P, K, HP, out, D, q, nb, 1, 0, 0, 0, device, stream);
 }
 
 extern "C" int cov_update_f64(const double* P, const double* K,
                               const double* HP, double* out, int D, int q,
                               int nb, int device, void* stream) {
-  return launch<double>(P, K, HP, out, D, q, nb, device, stream);
+  return launch<double>(P, K, HP, out, D, q, nb, 1, 0, 0, 0, device, stream);
+}
+
+// B updates in one launch: row b reads P + b sP, K + b sK, HP + b sHP
+// (strides in elements, 0 for an operand the rows share) and writes
+// out + b D D.
+extern "C" int cov_update_batched_f32(const float* P, const float* K,
+                                      const float* HP, float* out, int D,
+                                      int q, int nb, int B, long long sP,
+                                      long long sK, long long sHP, int device,
+                                      void* stream) {
+  return launch<float>(P, K, HP, out, D, q, nb, B, sP, sK, sHP, device,
+                       stream);
+}
+
+extern "C" int cov_update_batched_f64(const double* P, const double* K,
+                                      const double* HP, double* out, int D,
+                                      int q, int nb, int B, long long sP,
+                                      long long sK, long long sHP, int device,
+                                      void* stream) {
+  return launch<double>(P, K, HP, out, D, q, nb, B, sP, sK, sHP, device,
+                        stream);
 }

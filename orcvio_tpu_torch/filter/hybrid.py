@@ -24,9 +24,9 @@ import torch
 
 from ..config.core import FilterConfig
 from ..math import linalg, se3, so3
+from ..tree import tree_where
 from .augment import cam_poses
-from .state import (LEG, FilterState, put, set_block, set_rows, take,
-                    tree_where)
+from .state import LEG, FilterState, put, set_block, set_rows, take
 
 
 def ekf_base(cfg: FilterConfig) -> int:

@@ -31,7 +31,8 @@ from .augment import (cam_poses, current_clone_slot, prune_clones,
 from .hybrid import (_idp_jacobian, ekf_feature_rows, promote_features,
                      reanchor_features, remove_state_features,
                      retire_nuisance, schmidt_demote, split_projection)
-from .state import FilterState, set_rows, tree_where
+from ..tree import tree_where
+from .state import FilterState, set_rows
 from .tracks import compact_tracks
 from .triangulation import check_motion, triangulate
 from .update import apply_ekf_update, feature_jacobians, gate_features, msckf_update

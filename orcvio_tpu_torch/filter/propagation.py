@@ -28,6 +28,10 @@ from ..math import linalg, so3
 from .state import (BA, BG, LEG, POS, THETA, VEL, FilterState, ImuState,
                     apply_imu_intrinsics_delta)
 
+# 3x3 block indices of the error-state slices, the keys of _assemble's
+# blocks (slices themselves hash only from Python 3.12 on).
+_TH, _V, _P, _BG, _BA = (s.start // 3 for s in (THETA, VEL, POS, BG, BA))
+
 
 @functools.lru_cache(maxsize=16)
 def _constants(cfg: FilterConfig, dtype, device):
@@ -57,22 +61,45 @@ def phi_closed_form_left(C_old, dt, gyro, acc, gyro_old, v_k, p_k, v_kp1,
                   + dt1 * dt1 * torch.linalg.cross(gyro_old, gyro) / 12)
     A = so3.hat(axis_angle)
     hat = so3.hat
+    return _assemble(S, {
+        (_TH, _BG): -0.5 * C_old @ (2 * I3 + A) * dt2,
+        (_V, _TH): -hat(v_kp1 - v_k - g_w * dt1),
+        (_V, _BG): (
+            hat(-p_kp1 + p_k + v_kp1 * dt1 - 0.5 * g_w * dt1 * dt1) @ C_old
+            + hat(-0.5 * p_kp1 + 0.5 * p_k + 0.5 * v_kp1 * dt1
+                  - g_w * dt1 * dt1 / 6) @ C_old @ A),
+        (_V, _BA): -0.5 * C_old @ (2 * I3 + A) * dt2,
+        (_P, _TH): -hat(p_kp1 - p_k - v_k * dt1 - 0.5 * g_w * dt1 * dt1),
+        (_P, _V): dt2 * I3,
+        (_P, _BG): (-(dt2 ** 3) * hat(g_w) @ C_old / 6
+                    + dt2 * hat(p_kp1 - p_k - g_w * dt1 * dt1 / 6)
+                    @ C_old @ A / 4),
+        (_P, _BA): -C_old @ (3 * I3 + A) * (dt2 * dt2) / 6}, LEG, LEG, I3)
 
-    Phi = torch.eye(LEG, dtype=dtype, device=dev).repeat(S, 1, 1)
-    Phi[:, THETA, BG] = -0.5 * C_old @ (2 * I3 + A) * dt2
-    Phi[:, VEL, THETA] = -hat(v_kp1 - v_k - g_w * dt1)
-    Phi[:, VEL, BG] = (
-        hat(-p_kp1 + p_k + v_kp1 * dt1 - 0.5 * g_w * dt1 * dt1) @ C_old
-        + hat(-0.5 * p_kp1 + 0.5 * p_k + 0.5 * v_kp1 * dt1
-              - g_w * dt1 * dt1 / 6) @ C_old @ A)
-    Phi[:, VEL, BA] = -0.5 * C_old @ (2 * I3 + A) * dt2
-    Phi[:, POS, THETA] = -hat(p_kp1 - p_k - v_k * dt1 - 0.5 * g_w * dt1 * dt1)
-    Phi[:, POS, VEL] = dt2 * I3
-    Phi[:, POS, BG] = (-(dt2 ** 3) * hat(g_w) @ C_old / 6
-                       + dt2 * hat(p_kp1 - p_k - g_w * dt1 * dt1 / 6)
-                       @ C_old @ A / 4)
-    Phi[:, POS, BA] = -C_old @ (3 * I3 + A) * (dt2 * dt2) / 6
-    return Phi
+
+def _assemble(S, blocks, rows, cols, I3, eye=True):
+    """(S, rows, cols) from 3x3 blocks over the first 15 states, keyed by
+    (row block, col block) index: each given block where it is given,
+    elsewhere the identity (with eye) or zeros. Built out of place (no
+    writes into a fresh tensor), so that it batches under
+    torch.func.vmap."""
+    nc = min(cols, 15) // 3
+    z = torch.zeros_like(I3)
+
+    def block(i, j):
+        b = blocks.get((i, j))
+        if b is None:
+            b = I3 if eye and i == j else z
+        return b.expand(S, 3, 3)
+
+    top = torch.cat([torch.cat([block(i, j) for j in range(nc)], -1)
+                     for i in range(5)], -2)
+    z0 = z[0, 0]
+    tail = (torch.eye if eye else torch.zeros)(
+        rows - 15, cols - 3 * nc, dtype=I3.dtype, device=I3.device)
+    low = torch.cat([z0.expand(rows - 15, 3 * nc), tail], -1)
+    top = torch.cat([top, z0.expand(S, 15, cols - 3 * nc)], -1)
+    return torch.cat([top, low.expand(S, rows - 15, cols)], -2)
 
 
 def _closed_form_increments(R, gyro, acc, dt, g_w):
@@ -135,18 +162,17 @@ def phi_euler(R_new, gyro, acc, dt, use_left_perturbation: bool):
     dtype, dev = R_new.dtype, R_new.device
     I3 = torch.eye(3, dtype=dtype, device=dev)
     dt2 = dt[:, None, None]
-    Phi = torch.eye(LEG, dtype=dtype, device=dev).repeat(S, 1, 1)
     if use_left_perturbation:
-        Phi[:, THETA, BG] = -dt2 * R_new
-        Phi[:, VEL, THETA] = -dt2 * so3.hat(torch.einsum("sij,sj->si", R_new,
-                                                         acc))
+        blocks = {(_TH, _BG): -dt2 * R_new,
+                  (_V, _TH): -dt2 * so3.hat(torch.einsum(
+                      "sij,sj->si", R_new, acc))}
     else:
-        Phi[:, THETA, THETA] = I3 - dt2 * so3.hat(gyro)
-        Phi[:, THETA, BG] = -dt2 * I3
-        Phi[:, VEL, THETA] = -dt2 * R_new @ so3.hat(acc)
-    Phi[:, VEL, BA] = -dt2 * R_new
-    Phi[:, POS, VEL] = dt2 * I3
-    return Phi
+        blocks = {(_TH, _TH): I3 - dt2 * so3.hat(gyro),
+                  (_TH, _BG): -dt2 * I3,
+                  (_V, _TH): -dt2 * R_new @ so3.hat(acc)}
+    blocks[_V, _BA] = -dt2 * R_new
+    blocks[_P, _V] = dt2 * I3
+    return _assemble(S, blocks, LEG, LEG, I3)
 
 
 def phi_closed_form_right(C_old, dt, gyro, acc):
@@ -166,35 +192,32 @@ def phi_closed_form_right(C_old, dt, gyro, acc):
     JL_plus = so3.left_jacobian(w_dt)
     HL_plus = so3.Hl(w_dt)
 
-    Phi = torch.eye(LEG, dtype=dtype, device=dev).repeat(S, 1, 1)
-    Phi[:, THETA, THETA] = so3.exp(-w_dt)
-    Phi[:, THETA, BG] = -dt2 * so3.left_jacobian(-w_dt)
-    Phi[:, VEL, THETA] = -dt2 * C_old @ hat(torch.einsum("sij,sj->si",
-                                                         JL_plus, acc))
-    Phi[:, VEL, BG] = C_old @ (
-        (dt2 * dt2 / 2) * a_skew
-        + (dt2 ** 3 / 3) * hat(torch.linalg.cross(gyro, acc))
-        + (dt2 ** 3 / 6) * a_skew @ hat(gyro))
-    Phi[:, VEL, BA] = -dt2 * C_old @ JL_plus
-    Phi[:, POS, THETA] = -(dt2 * dt2) * C_old @ hat(
-        torch.einsum("sij,sj->si", HL_plus, acc))
-    Phi[:, POS, VEL] = dt2 * I3
-    Phi[:, POS, BG] = (dt2 ** 3 / 6) * C_old @ a_skew
-    Phi[:, POS, BA] = -(dt2 * dt2) * C_old @ HL_plus
-    return Phi
+    return _assemble(S, {
+        (_TH, _TH): so3.exp(-w_dt),
+        (_TH, _BG): -dt2 * so3.left_jacobian(-w_dt),
+        (_V, _TH): -dt2 * C_old @ hat(torch.einsum("sij,sj->si",
+                                                   JL_plus, acc)),
+        (_V, _BG): C_old @ (
+            (dt2 * dt2 / 2) * a_skew
+            + (dt2 ** 3 / 3) * hat(torch.linalg.cross(gyro, acc))
+            + (dt2 ** 3 / 6) * a_skew @ hat(gyro)),
+        (_V, _BA): -dt2 * C_old @ JL_plus,
+        (_P, _TH): -(dt2 * dt2) * C_old @ hat(
+            torch.einsum("sij,sj->si", HL_plus, acc)),
+        (_P, _V): dt2 * I3,
+        (_P, _BG): (dt2 ** 3 / 6) * C_old @ a_skew,
+        (_P, _BA): -(dt2 * dt2) * C_old @ HL_plus}, LEG, LEG, I3)
 
 
 def noise_input_matrix(C_old, use_left_or_larvio: bool):
     """G (S, 22, 12). Ref: orcvio.cpp:773-795. The theta rows take -C_old
     in the left/LARVIO convention, -I in the right one."""
-    S = C_old.shape[0]
-    G = torch.zeros((S, LEG, 12), dtype=C_old.dtype, device=C_old.device)
     I3 = torch.eye(3, dtype=C_old.dtype, device=C_old.device)
-    G[:, THETA, 0:3] = -C_old if use_left_or_larvio else -I3
-    G[:, VEL, 3:6] = -C_old
-    G[:, BG, 6:9] = I3
-    G[:, BA, 9:12] = I3
-    return G
+    return _assemble(C_old.shape[0], {
+        (_TH, 0): -C_old if use_left_or_larvio else -I3,
+        (_V, 1): -C_old,
+        (_BG, 2): I3,
+        (_BA, 3): I3}, LEG, 12, I3, eye=False)
 
 
 def _compose_transitions(Phi, Q, S=None):

@@ -19,6 +19,7 @@ import torch
 
 from .. import resolve_device
 from ..config.core import FilterConfig
+from ..tree import Tree
 
 LEG = 22
 THETA = slice(0, 3)
@@ -26,28 +27,6 @@ VEL = slice(3, 6)
 POS = slice(6, 9)
 BG = slice(9, 12)
 BA = slice(12, 15)
-
-
-class _Tree:
-    """A dataclass whose fields are tensors or further _Trees."""
-
-    def replace(self, **changes):
-        return dataclasses.replace(self, **changes)
-
-
-def tree_map(fn, *trees):
-    """fn over the tensor leaves of trees of one layout."""
-    a = trees[0]
-    if isinstance(a, torch.Tensor):
-        return fn(*trees)
-    return dataclasses.replace(a, **{
-        f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
-        for f in dataclasses.fields(a)})
-
-
-def tree_where(cond, a, b):
-    """Field by field torch.where(cond, a, b): JAX's tree-mapped jnp.where."""
-    return tree_map(lambda x, y: torch.where(cond, x, y), a, b)
 
 
 def take(x, i):
@@ -61,7 +40,7 @@ def _eye3(dtype, device):
 
 
 @dataclasses.dataclass
-class ImuState(_Tree):
+class ImuState(Tree):
     """IMU mean state. Orientation stored as R: body->world (imu_state.h:53)."""
 
     R: torch.Tensor  # (3, 3)
@@ -77,7 +56,7 @@ class ImuState(_Tree):
 
 
 @dataclasses.dataclass
-class CloneStates(_Tree):
+class CloneStates(Tree):
     """Sliding-window IMU pose clones in a ring buffer (slot != age);
     ``order`` is the insertion counter, -1 = invalid."""
 
@@ -101,7 +80,7 @@ class CloneStates(_Tree):
 
 
 @dataclasses.dataclass
-class FeatureTable(_Tree):
+class FeatureTable(Tree):
     """Per-feature observations aligned to clone slots: uv[f, c] is the
     normalized (u, v) of feature row f in clone slot c."""
 
@@ -134,7 +113,7 @@ class FeatureTable(_Tree):
 
 
 @dataclasses.dataclass
-class NuiClones(_Tree):
+class NuiClones(Tree):
     """Schmidt nuisance clones (nui_imu_states, orcvio.h:167-170): pruned
     clones that still anchor EKF features, at most nuisance_cap (one
     masked row when the cap is 0)."""
@@ -156,7 +135,7 @@ class NuiClones(_Tree):
 
 
 @dataclasses.dataclass
-class FilterState(_Tree):
+class FilterState(Tree):
     """The complete filter state (StateServer equivalent)."""
 
     t: torch.Tensor  # scalar time of the imu state

@@ -100,9 +100,9 @@ def feature_jacobians(cfg: FilterConfig, state: FilterState, ct: CompactTracks,
     cols = (LEG + 6 * ct.slot)[..., None, None] + torch.arange(6, device=dev)
     H = torch.zeros((F, T, 2, D), dtype=state.P.dtype, device=dev)
     H = H.scatter(-1, cols.expand(F, T, 2, 6), H_x)
-    H[..., 15:21] = H_e
-    if cfg.estimate_td:
-        H[..., 21] = ct.uv_vel * ct.mask[..., None]
+    td = (ct.uv_vel * ct.mask[..., None])[..., None] if cfg.estimate_td \
+        else H[..., 21:22]
+    H = torch.cat([H[..., :15], H_e, td, H[..., 22:]], dim=-1)
 
     Hrows = H.reshape(F, 2 * T, D)
     Hf_rows = H_f.reshape(F, 2 * T, 3)

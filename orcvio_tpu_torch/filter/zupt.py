@@ -12,7 +12,8 @@ import torch
 from ..config.core import FilterConfig
 from ..math import quat, so3
 from .propagation import gravity_vec
-from .state import LEG, FilterState, take, tree_where
+from ..tree import tree_where
+from .state import LEG, FilterState, take
 from .update import apply_ekf_update
 
 # OpenVINS-style IMU disturbance noise (orcvio.cpp:3140-3152, hardcoded there)

@@ -97,7 +97,7 @@ def equalize_hist(img, bins: int = 64, subsample: int = 4, degree: int = 8):
     sub = flat[::subsample, ::subsample]
     idx = torch.clamp(sub / 255.0 * (bins - 1), 0.0, bins - 1.0).round()
     idx = idx.to(torch.int64).reshape(-1)
-    hist = torch.zeros(bins, dtype=img.dtype, device=img.device).scatter_add_(
+    hist = torch.zeros(bins, dtype=img.dtype, device=img.device).scatter_add(
         0, idx, torch.ones_like(idx, dtype=img.dtype))
     cdf = torch.cumsum(hist, dim=0)
     cdf = cdf / cdf[-1]

@@ -36,11 +36,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..ops.lk_pallas import (AUX_W, lk_iterate_fused,
-                             lk_iterate_fused_plain, lk_iterate_src,
-                             lk_iterate_src_plain, lk_level_fused,
-                             lk_level_src, resample)
+from ..ops.lk_pallas import (lk_iterate_fused, lk_iterate_fused_plain,
+                             lk_iterate_src, lk_iterate_src_plain,
+                             lk_level_fused, lk_level_src, resample)
 from ..ops.window_gather import (AlignedImage, gather_windows, prepare_image,
                                  window_offsets, window_origins)
 
@@ -98,13 +98,16 @@ def _level_aux(lw0: LevelWindows, lw1: LevelWindows, xy0, p_init,
     """K2's per-feature inputs in window-local coordinates, and the search
     bounds (lo, hi) in win1's frame."""
     lo, hi = _search_bounds(lw1, patch)
-    aux = torch.zeros((p_init.shape[0], AUX_W), dtype=p_init.dtype,
-                      device=p_init.device)
-    aux[:, 0:2] = xy0 - lw0.origin
-    aux[:, 4:6] = lo
-    aux[:, 6:8] = hi
-    aux[:, 10:12] = p_init - lw1.origin
+    z = torch.zeros_like(p_init)
+    aux = _aux(p_init, xy0 - lw0.origin, z, lo, hi, z,
+               p_init - lw1.origin, z, z)
     return aux, lo, hi
+
+
+def _aux(like, *cols):
+    """(N, AUX_W) aux (ops/lk_pallas.py's layout) from its column blocks, each (N, k), in like's dtype:
+    built out of place, so that it batches under torch.func.vmap."""
+    return torch.cat([c.to(like.dtype) for c in cols], dim=-1)
 
 
 def _lk_level(lw0: LevelWindows, lw1: LevelWindows, xy0, p_init, patch: int,
@@ -143,10 +146,8 @@ def _template(lw: LevelWindows, xy, patch: int):
     rows and columns), then the sampler on the three channels."""
     r = (patch - 1) // 2
     win = lw.win
-    gx = torch.zeros_like(win)
-    gx[:, :, 1:-1] = 0.5 * (win[:, :, 2:] - win[:, :, :-2])
-    gy = torch.zeros_like(win)
-    gy[:, 1:-1, :] = 0.5 * (win[:, 2:, :] - win[:, :-2, :])
+    gx = F.pad(0.5 * (win[:, :, 2:] - win[:, :, :-2]), (1, 1))
+    gy = F.pad(0.5 * (win[:, 2:, :] - win[:, :-2, :]), (0, 0, 1, 1))
     local = xy - lw.origin - r  # patch (0, 0) tap
     t, tgx, tgy = (resample(c, local[:, 0], local[:, 1], patch)
                    for c in (win, gx, gy))
@@ -162,15 +163,10 @@ def _iterate_aux(lw: LevelWindows, tmpl, p_init, patch: int):
     bounds (lo, hi)."""
     _, _, _, a11, a12, a22, det = tmpl
     lo, hi = _search_bounds(lw, patch)
-    aux = torch.zeros((p_init.shape[0], AUX_W), dtype=p_init.dtype,
-                      device=p_init.device)
-    aux[:, 0] = a11
-    aux[:, 1] = a12
-    aux[:, 2] = a22
-    aux[:, 3] = torch.where(det > 1e-6, det, torch.ones_like(det))
-    aux[:, 4:6] = lo
-    aux[:, 6:8] = hi
-    aux[:, 10:12] = p_init - lw.origin
+    det_safe = torch.where(det > 1e-6, det, torch.ones_like(det))
+    z = torch.zeros_like(p_init)
+    aux = _aux(p_init, torch.stack([a11, a12, a22, det_safe], dim=-1), lo,
+               hi, z, p_init - lw.origin, z, z)
     return aux, lo, hi
 
 

@@ -57,15 +57,16 @@ def _cholesky9(M):
 def _chol_solve(L, b):
     """Solve L L^T x = b by unrolled forward/back substitution. b: (H, n)."""
     n = L.shape[-1]
-    y = torch.zeros_like(b)
+    y = []  # built out of place, so that it batches under torch.func.vmap
     for i in range(n):
-        y[:, i] = (b[:, i] - torch.sum(L[:, i, :i] * y[:, :i], dim=-1)) \
-            / L[:, i, i]
-    x = torch.zeros_like(b)
+        done = torch.sum(L[:, i, :i] * torch.stack(y, -1), dim=-1) if i else 0
+        y.append((b[:, i] - done) / L[:, i, i])
+    x = [None] * n
     for i in range(n - 1, -1, -1):
-        x[:, i] = (y[:, i] - torch.sum(L[:, i + 1:, i] * x[:, i + 1:], dim=-1)) \
-            / L[:, i, i]
-    return x
+        done = torch.sum(L[:, i + 1:, i] * torch.stack(x[i + 1:], -1),
+                         dim=-1) if i < n - 1 else 0
+        x[i] = (y[i] - done) / L[:, i, i]
+    return torch.stack(x, -1)
 
 
 def sampson_dist(F, p1, p2):
@@ -87,8 +88,11 @@ def draw_gumbel(shape, generator: torch.Generator, dtype, device):
     return -torch.log(-torch.log(u))
 
 
+RANSAC_HYPOTHESES = 128  # hypotheses a frame draws
+
+
 def ransac_fundamental(p1, p2, valid, gumbel=None, generator=None,
-                       n_hyp: int = 128, thresh: float = 3e-5):
+                       n_hyp: int = RANSAC_HYPOTHESES, thresh: float = 3e-5):
     """Inlier mask via batched 8-point RANSAC.
 
     p1, p2: (N, 2) normalized coords; valid: (N,) candidate mask; gumbel:

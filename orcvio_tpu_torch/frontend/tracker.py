@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .. import no_tf32, resolve_device
+from ..tree import Tree, tree_stack
 from ..math import so3
 from . import orb
 from .detect import detect_grid
@@ -61,7 +62,9 @@ def level_shapes(tc: TrackerConfig):
 
 
 @dataclass
-class TrackerState:
+class TrackerState(Tree):
+    _static = ("rng",)
+
     pyr: tuple  # previous prepared pyramid (tuple of AlignedImage)
     xy: torch.Tensor  # (N, 2) previous pixel positions
     uvn: torch.Tensor  # (N, 2) previous normalized coords
@@ -88,6 +91,14 @@ class TrackerState:
             next_id=torch.zeros((), dtype=torch.int32, device=device),
             rng=torch.Generator(device=device).manual_seed(seed),
         )
+
+
+def stack_tracker_states(states):
+    """B tracker states as one batched state for the batched replay: the
+    tensors stacked (tree.py:tree_stack), the B generators kept as
+    a tuple, since each stream draws its own RANSAC noise outside vmap."""
+    return tree_stack([s.replace(rng=None) for s in states]).replace(
+        rng=tuple(s.rng for s in states))
 
 
 class TrackerOutput(NamedTuple):

@@ -14,12 +14,13 @@ import torch
 
 from .. import resolve_device
 from ..config.core import FilterConfig
-from ..filter.state import ImuState, _Tree
+from ..filter.state import ImuState
+from ..tree import Tree
 from ..math import so3
 
 
 @dataclasses.dataclass
-class StaticInitState(_Tree):
+class StaticInitState(Tree):
     counter: torch.Tensor  # consecutive static frames (int32)
     started: torch.Tensor  # bool, reference frame captured
     ref_fid: torch.Tensor  # (M,) int32
@@ -89,13 +90,12 @@ def initial_imu_state(cfg: FilterConfig, s: StaticInitState,
     gravity_imu = s.sum_acc / n
     g_norm = torch.linalg.norm(gravity_imu)
     a = gravity_imu / torch.clamp(g_norm, min=1e-9)
-    b = torch.zeros_like(a)
-    b[2] = 1.0
+    zero, one = torch.zeros_like(a[:1]), torch.ones_like(a[:1])
+    b = torch.cat([zero, zero, one])
     v = torch.linalg.cross(a, b)
     c = torch.dot(a, b)
     vn = torch.linalg.norm(v)
-    x_axis = torch.zeros_like(a)
-    x_axis[0] = 1.0
+    x_axis = torch.cat([one, zero, zero])
     axis = torch.where(vn > 1e-9, v / torch.clamp(vn, min=1e-9), x_axis)
     R = so3.exp(axis * torch.atan2(vn, c))
     z = torch.zeros(3, dtype=dtype, device=a.device)

@@ -44,8 +44,7 @@ def nullspace_project(H_f, H_x, r):
         x = torch.where(rows >= j, A[..., :, j], 0.0)
         nx = torch.sqrt(torch.sum(x * x, dim=-1))
         sign = torch.where(x[..., j] >= 0, 1.0, -1.0).to(x.dtype)
-        v = x.clone()
-        v[..., j] = v[..., j] + sign * nx
+        v = torch.where(rows == j, x + (sign * nx)[..., None], x)
         vtv = torch.sum(v * v, dim=-1)
         beta = torch.where(vtv > 1e-30, 2.0 / torch.where(vtv > 1e-30, vtv, 1.0),
                            0.0)

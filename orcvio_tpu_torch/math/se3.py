@@ -29,8 +29,9 @@ def make_pose(R, t):
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     top = torch.cat([R.expand(batch + (3, 3)),
                      t.expand(batch + (3,))[..., None]], dim=-1)
-    bottom = torch.zeros(batch + (1, 4), dtype=top.dtype, device=top.device)
-    bottom[..., 0, 3] = 1.0
+    # [0 0 0 1], built out of place so that it batches under vmap
+    bottom = torch.cat([torch.zeros_like(top[..., :1, :3]),
+                        torch.ones_like(top[..., :1, 3:])], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

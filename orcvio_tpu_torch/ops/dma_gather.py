@@ -21,25 +21,21 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _vmap
 
 BR, BL = 8, 128  # window origin alignment (rows, lanes), as on the TPU
 
 
 def dma_gather_tiles_plain(imgs, r0, c0, bidx, nr: int, nl: int):
-    """Plain PyTorch version: one slice per window. Indices are clamped in
-    range, as the kernel clamps them."""
+    """Plain PyTorch version: one indexed gather of every window, with no
+    host read. Indices are clamped in range, as the kernel clamps them."""
     B, Hp, Wp = imgs.shape
-    rows, lanes = nr * BR, nl * BL
-    if r0.shape[0] == 0:
-        return imgs.new_empty((0, rows, lanes))
-    r0 = torch.clamp(r0, 0, Hp // BR - nr).tolist()
-    c0 = torch.clamp(c0, 0, Wp // BL - nl).tolist()
-    bidx = torch.clamp(bidx, 0, B - 1).tolist()
-    return torch.stack([
-        imgs[b, r * BR:r * BR + rows, c * BL:c * BL + lanes]
-        for b, r, c in zip(bidx, r0, c0)
-    ])
+    rows = torch.arange(nr * BR, device=imgs.device)
+    lanes = torch.arange(nl * BL, device=imgs.device)
+    r = torch.clamp(r0.long(), 0, Hp // BR - nr)[:, None] * BR + rows
+    c = torch.clamp(c0.long(), 0, Wp // BL - nl)[:, None] * BL + lanes
+    b = torch.clamp(bidx.long(), 0, B - 1)
+    return imgs[b[:, None, None], r[:, :, None], c[:, None, :]]
 
 
 def _check_cuda(imgs, idx, nr, nl):
@@ -66,8 +62,15 @@ def dma_gather_tiles(imgs, r0, c0, bidx, nr: int, nl: int):
 
     r0/c0: (N,) int32 window origins in units of 8 rows / 128 lanes; bidx:
     (N,) int32 image index of each window. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise.
-    """
+    version; CUDA tensors launch the kernel or raise. Under torch.func.vmap
+    a batch of calls is one call (one launch) over the rows' images
+    stacked, each row's image index shifted to its own."""
+    return _window_gather(imgs, r0, c0, bidx, nr, nl)
+
+
+@torch.library.custom_op("orcvio_tpu_torch::window_gather", mutates_args=())
+def _window_gather(imgs: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
+                   bidx: torch.Tensor, nr: int, nl: int) -> torch.Tensor:
     if imgs.device.type == "cpu":
         return dma_gather_tiles_plain(imgs, r0, c0, bidx, nr, nl)
     if imgs.device.type != "cuda":
@@ -88,6 +91,24 @@ def dma_gather_tiles(imgs, r0, c0, bidx, nr: int, nl: int):
         raise RuntimeError(f"window gather: CUDA error {rc} at launch")
     dma_gather_tiles.launches += 1
     return out
+
+
+@_window_gather.register_vmap
+def _window_gather_vmap(info, in_dims, imgs, r0, c0, bidx, nr, nl):
+    """B calls as one: the rows' (C, Hp, Wp) images as (B*C, Hp, Wp), row
+    b's image indices clamped to its own C images and shifted by b*C. A
+    shared stack of images is read as it is."""
+    B = info.batch_size
+    imgs, batched = _vmap.split(imgs, in_dims[0])
+    b = torch.clamp(_vmap.rows(bidx, in_dims[3], B), 0, imgs.shape[-3] - 1)
+    if batched:
+        C = imgs.shape[1]
+        imgs = imgs.reshape(B * C, *imgs.shape[2:]).contiguous()
+        b = b + C * torch.arange(B, dtype=b.dtype, device=b.device)[:, None]
+    N = b.shape[1]
+    out = _window_gather(imgs, _vmap.flat(r0, in_dims[1], B),
+                         _vmap.flat(c0, in_dims[2], B), b.reshape(-1), nr, nl)
+    return out.reshape(B, N, *out.shape[1:]), 0
 
 
 dma_gather_tiles.launches = 0

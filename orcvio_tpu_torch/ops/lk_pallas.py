@@ -51,7 +51,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _vmap
 
 # aux layout per feature (window-local coordinates), K2:
 # [p0_x p0_y . . lo_x lo_y hi_x hi_y . . p1_x p1_y . . . .]
@@ -251,7 +251,18 @@ def lk_level_src(img0, off0, img1, off1, aux, iters: int, patch: int,
     img_k.shape[-1] apart), as ops/window_gather.py:window_offsets gives
     it; aux as lk_level_fused's. Returns lk_level_fused's (N, 8) rows on
     those windows, NaN rows included. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel or raise. Under torch.func.vmap a batch
+    of calls is one call (one launch) over the B * N features, the rows'
+    levels stacked into one image."""
+    return _lk_level_src(img0, off0, img1, off1, aux, iters, patch, eps,
+                         rows, lanes)
+
+
+@torch.library.custom_op("orcvio_tpu_torch::lk_level_src", mutates_args=())
+def _lk_level_src(img0: torch.Tensor, off0: torch.Tensor, img1: torch.Tensor,
+                  off1: torch.Tensor, aux: torch.Tensor, iters: int,
+                  patch: int, eps: float, rows: int,
+                  lanes: int) -> torch.Tensor:
     if img1.device.type == "cpu":
         return lk_level_src_plain(img0, off0, img1, off1, aux, iters, patch,
                                   eps, rows, lanes)
@@ -274,6 +285,29 @@ def lk_level_src(img0, off0, img1, off1, aux, iters: int, patch: int,
         raise RuntimeError(f"lk level: CUDA error {rc} at launch")
     lk_level_fused.launches += 1
     return out
+
+
+@_lk_level_src.register_vmap
+def _lk_level_src_vmap(info, in_dims, img0, off0, img1, off1, aux, iters,
+                       patch, eps, rows, lanes):
+    """B calls as one over B * N features: a batched (B, Hp, Wp) level is
+    read as one (B * Hp, Wp) image with row b's offsets shifted by b Hp Wp
+    (window_origins keeps every window inside its own image); a shared
+    level is read as it is, its offsets unshifted."""
+    B = info.batch_size
+    srcs = []
+    for img, d_img, off, d_off in ((img0, in_dims[0], off0, in_dims[1]),
+                                   (img1, in_dims[2], off1, in_dims[3])):
+        img, batched = _vmap.split(img, d_img)
+        off = _vmap.rows(off, d_off, B)
+        if batched:
+            off = off + img[0].numel() * torch.arange(
+                B, dtype=off.dtype, device=off.device)[:, None]
+            img = img.reshape(-1, img.shape[-1]).contiguous()
+        srcs += [img, off.reshape(-1).contiguous()]
+    aux = _vmap.flat(aux, in_dims[4], B)
+    out = _lk_level_src(*srcs, aux, iters, patch, eps, rows, lanes)
+    return out.reshape(B, -1, 8), 0
 
 
 _build.declare("lk_level", "lk_level_src", [

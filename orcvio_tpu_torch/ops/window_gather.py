@@ -20,12 +20,15 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..tree import Tree
 from .dma_gather import BL, BR, dma_gather_tiles
 
 
 @dataclass
-class AlignedImage:
+class AlignedImage(Tree):
     """Edge-padded, tile-aligned image prepared for window gathering."""
+    _static = ("hb", "wb", "pad", "shape")
+
     padded: torch.Tensor  # (C, Hp, Wp)
     hb: int
     wb: int

@@ -28,7 +28,7 @@ import torch
 from . import no_tf32, resolve_device
 from .config.core import FilterConfig
 from .filter.pipeline import FrameInput, build_chi2_table
-from .filter.state import tree_map
+from .tree import tree_map
 from .frontend.tracker import TrackerConfig, TrackerState, process_frame
 from .init.dynamic import flexible_dynamic_attempt, window_tracks
 from .vio import VioState, vio_step

@@ -7,21 +7,27 @@ while it is false, which is the static phase: one read a frame until
 initialization, then ``host_initialized`` is set and every later frame runs
 ``filter_step`` alone, with no read at all (``initialized`` never returns
 to false). So the frame loop after initialization never waits for the card.
+``batched_vio_step`` runs B streams through ``torch.func.vmap`` of the same
+step, the counterpart of ``jax.vmap`` over it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from .config.core import FilterConfig
 from .filter.pipeline import FrameInput, FrameOutput, filter_step
-from .filter.state import FilterState, _Tree, tree_where
+from .filter.state import FilterState
+from .tree import Tree, tree_where
 from .init.static_init import StaticInitState, initial_imu_state, static_init_step
 
 
 @dataclasses.dataclass
-class VioState(_Tree):
+class VioState(Tree):
+    _static = ("host_initialized",)
+
     filter: FilterState
     sinit: StaticInitState
     host_initialized: bool = False  # host copy of filter.initialized, once true
@@ -64,8 +70,40 @@ def vio_step(cfg: FilterConfig, state: VioState, frame: FrameInput, chi2_table):
         state = state.replace(host_initialized=True)
     if not state.host_initialized:
         return _init_step(cfg, state, frame)
-    fs, out = filter_step(cfg, state.filter, frame, chi2_table)
-    return state.replace(filter=fs), out
+    return _filter_step(cfg, state, frame, chi2_table)
+
+
+def _filter_step(cfg: FilterConfig, st: VioState, frame: FrameInput,
+                 chi2_table):
+    fs, out = filter_step(cfg, st.filter, frame, chi2_table)
+    return st.replace(filter=fs), out
+
+
+def batched_vio_step(cfg: FilterConfig, states: VioState, frames: FrameInput,
+                     chi2_table):
+    """vio_step for B streams at once, one flag per stream: states and
+    frames are stacked (leaves (B, ...)) and the step is torch.func.vmap of
+    the single-stream one. While a stream is not initialized the (B,) flag
+    is read on the host once a frame: all false runs the init step, all
+    true the filter step (and from then on nothing is read), a mix runs
+    both and takes each row's own, which is what jax.vmap makes of the
+    JAX package's lax.cond."""
+    if not states.host_initialized:
+        flags = states.filter.initialized.tolist()
+        if all(flags):
+            states = states.replace(host_initialized=True)
+        elif not any(flags):
+            return torch.func.vmap(functools.partial(_init_step, cfg))(
+                states, frames)
+        else:
+            def both(st, frame):
+                return tree_where(st.filter.initialized,
+                                  _filter_step(cfg, st, frame, chi2_table),
+                                  _init_step(cfg, st, frame))
+
+            return torch.func.vmap(both)(states, frames)
+    return torch.func.vmap(functools.partial(
+        _filter_step, cfg, chi2_table=chi2_table))(states, frames)
 
 
 def run_vio(cfg: FilterConfig, state: VioState, frames: FrameInput,

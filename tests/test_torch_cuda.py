@@ -17,6 +17,11 @@ tile, on both kernels.
 
 K1 (``csrc/window_gather.cu``): bit-exact against the plain version.
 
+The vmap rules (K1, K2's level route, K4): a batch of B calls under
+``torch.func.vmap`` is one launch, and each row equals its own single
+launch bit for bit, with operands batched, shared (in_dim None) and
+shared through a batch stride of 0.
+
 K2 (``csrc/lk_level.cu``): positions within 1e-3 px of the plain version
 at eps = 0 and 2e-2 px at eps = 0.01 (both exact float32 taps; the sums
 differ in order, which may move a stop by one step), convergence agreeing
@@ -465,3 +470,81 @@ def test_filter_frame_captures_as_a_cuda_graph(card, dtype):
     assert bool(got.n_update_features == want.n_update_features)
     torch.testing.assert_close(got_state.P, want_state.P, rtol=0,
                                atol=tol * 10)
+
+
+# --- the vmap rules: a batch in one launch, each row its own launch's bits ---
+
+def _row(x, d, b):
+    return x if d is None else x[b]
+
+
+@pytest.mark.parametrize("shared", ["none", "HP", "P_stride0"])
+@pytest.mark.parametrize("q,nb", [(444, 172), (9, 172), (444, 136), (9, 136)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cov_update_batched_rows_equal_single_launches(card, dtype, q, nb,
+                                                       shared):
+    B, D = 4, 172
+    rows = [_inputs(D, q, 100 + b, dtype, card) for b in range(B)]
+    P, K = (torch.stack([r[i] for r in rows]) for i in (0, 1))
+    HP = torch.stack([r[2] @ r[0] for r in rows])
+    dims = [0, 0, 0]
+    if shared == "HP":
+        HP, dims[2] = HP[0], None
+    if shared == "P_stride0":  # as vmap hands back an unbatched output
+        P = P[0].expand(B, D, D)
+    n = cov_update.launches
+    out = torch.func.vmap(lambda p, k, hp: cov_update(p, k, None, hp, nb),
+                          in_dims=tuple(dims))(P, K, HP)
+    torch.cuda.synchronize()
+    assert cov_update.launches == n + 1
+    want = torch.stack([cov_update(P[b], K[b], None, _row(HP, dims[2], b), nb)
+                        for b in range(B)])
+    assert torch.equal(out, want) and torch.equal(out, out.mT)
+    assert torch.equal(out[:, nb:, nb:], P[:, nb:, nb:])
+
+
+@pytest.mark.parametrize("shared", ["none", "img0", "both", "img0_stride0"])
+def test_lk_level_src_batched_rows_equal_single_launches(card, shared):
+    cases = [_k2_case(200, card, seed=b) for b in range(4)]
+    args = [torch.stack(x) for x in zip(*(
+        (s0.level, s0.offset, s1.level, s1.offset, aux)
+        for _, (s0, s1), aux, _, _ in cases))]
+    dims = [0, 0, 0, 0, 0]
+    if shared in ("img0", "both"):
+        args[0], dims[0] = args[0][0], None
+    if shared == "both":
+        args[2], dims[2] = args[2][0], None
+    if shared == "img0_stride0":
+        args[0] = args[0][0].expand_as(args[0])
+    n = lk_level_fused.launches
+    out = torch.func.vmap(lambda *a: lk_level_src(*a, 10, 15, 0.01),
+                          in_dims=tuple(dims))(*args)
+    torch.cuda.synchronize()
+    assert lk_level_fused.launches == n + 1
+    want = torch.stack([lk_level_src(*(_row(x, d, b) for x, d in
+                                       zip(args, dims)), 10, 15, 0.01)
+                        for b in range(4)])
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["batched", "shared"])
+def test_window_gather_batched_rows_equal_single_launches(card, shared):
+    ais = [prepare_image(_frame_pair(card, seed=b)[0][None], klt.MARGIN)
+           for b in range(3)]
+    xy = torch.as_tensor(np.random.default_rng(3).uniform(
+        [-5, -5], [325, 245], size=(3, 440, 2)), dtype=torch.float32,
+        device=card)
+    r0, c0 = (torch.stack(x) for x in zip(*(
+        window_origins(ais[0], xy[b], -18, 48, 256)[:2] for b in range(3))))
+    b0 = torch.zeros_like(r0)
+    imgs = ais[0].padded if shared else torch.stack([a.padded for a in ais])
+    n = dma_gather_tiles.launches
+    out = torch.func.vmap(lambda *a: dma_gather_tiles(*a, 6, 2),
+                          in_dims=(None if shared else 0, 0, 0, 0))(
+        imgs, r0, c0, b0)
+    torch.cuda.synchronize()
+    assert dma_gather_tiles.launches == n + 1
+    want = torch.stack([dma_gather_tiles(imgs if shared else imgs[b], r0[b],
+                                         c0[b], b0[b], 6, 2)
+                        for b in range(3)])
+    assert torch.equal(out, want)

@@ -169,11 +169,12 @@ def test_render_plane_view_matches_jax(t):
     np.testing.assert_allclose(ours.numpy(), theirs, rtol=0, atol=1e-3)
 
 
-def jax_bench_ate(n):
+def jax_bench_ate(n, prefix=None):
     """The JAX package's replay over chip_smoke.py's end-to-end stream
     (the port's make_stream on the CPU: the frames and IMU phase 5 replays)
     in float32 on the CPU: init frame, update count, ATE (posyaw, all
-    frames)."""
+    frames; with prefix, also over the first prefix frames, as
+    "ate_m_prefix")."""
     jax.config.update("jax_platforms", "cpu")
     from orcvio_tpu.config.core import FilterConfig
     from orcvio_tpu.eval.staged import make_e2e_replay, stage_sequence
@@ -204,7 +205,14 @@ def jax_bench_ate(n):
             ft, st.gt_p, np.asarray(from_rot(jnp.asarray(st.gt_R))),
             alignment="posyaw")
     k0 = init_frame(outs["R"])
-    return {"frames": n, "init_frame": k0,
+    extra = {}
+    if prefix is not None:
+        q = np.asarray(from_rot(jnp.asarray(outs["R"][:prefix])))
+        extra = {"prefix": prefix, "ate_m_prefix": ate(
+            ft[:prefix], outs["p"][:prefix], q, ft[:prefix],
+            st.gt_p[:prefix], np.asarray(from_rot(jnp.asarray(
+                st.gt_R[:prefix]))), alignment="posyaw")["rmse_trans"]}
+    return {"frames": n, "init_frame": k0, **extra,
             "filter_frames": None if k0 is None else n - 1 - k0,
             "n_upd_total": int(outs["n_upd"].sum()),
             "zupt_frames": int(outs["zupt"].sum()),
@@ -216,5 +224,8 @@ def jax_bench_ate(n):
 
 if __name__ == "__main__":
     if "--jax-bench-ate" not in sys.argv:
-        sys.exit("usage: python tests/test_torch_e2e.py --jax-bench-ate")
-    print(json.dumps(jax_bench_ate(cs.E2E_FRAMES)))
+        sys.exit("usage: python tests/test_torch_e2e.py --jax-bench-ate "
+                 "[--prefix N]")
+    pre = (int(sys.argv[sys.argv.index("--prefix") + 1])
+           if "--prefix" in sys.argv else None)
+    print(json.dumps(jax_bench_ate(cs.E2E_FRAMES, pre)))

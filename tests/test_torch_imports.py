@@ -4,7 +4,8 @@
   orcvio_tpu (by name or as a dotted submodule), nor cv2, yaml, PIL or
   imageio, which the card's machine does not have.
 * Importing the whole port leaves jax out of sys.modules.
-* Entry points without device= run on CUDA, and raise where there is none.
+* Entry points without device= run on CUDA, and raise where there is none
+  (the batched replay and parallel/'s mesh too).
 * Every filter flag runs: the IMU intrinsics and Schmidt flags build a
   filter state, a frame and a replay on the CPU.
 * Kernel wrappers given CPU tensors take the plain versions: their launch
@@ -27,7 +28,8 @@ from orcvio_tpu_torch.dataio.euroc_writer import (make_stream,
                                                   write_euroc_dataset)
 from orcvio_tpu_torch.dataio.synthetic import (SimConfig, generate,
                                                smooth_texture)
-from orcvio_tpu_torch.eval.staged import (make_e2e_replay, make_tracker_scan,
+from orcvio_tpu_torch.eval.staged import (make_batched_e2e_replay,
+                                          make_e2e_replay, make_tracker_scan,
                                           stage_sequence)
 from orcvio_tpu_torch.filter.pipeline import build_chi2_table
 from orcvio_tpu_torch.filter.state import FilterState
@@ -37,6 +39,7 @@ from orcvio_tpu_torch.ops.dma_gather import dma_gather_tiles
 from orcvio_tpu_torch.ops.lk_pallas import (AUX_W, lk_iterate_fused,
                                             lk_iterate_src, lk_level_fused,
                                             lk_level_src)
+from orcvio_tpu_torch.parallel.replay import make_mesh
 from orcvio_tpu_torch.scripts.race_extract import extract_pallas
 from orcvio_tpu_torch.vio import VioState
 
@@ -70,6 +73,7 @@ def test_port_import_leaves_jax_unloaded():
         orcvio_tpu_torch.__path__, "orcvio_tpu_torch.")]
     assert "orcvio_tpu_torch.frontend.tracker" in names
     assert "orcvio_tpu_torch.scripts.race_extract" in names
+    assert "orcvio_tpu_torch.parallel.replay" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -77,6 +81,40 @@ def test_port_import_leaves_jax_unloaded():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_port_parses_on_the_oldest_python():
+    """pyproject.toml allows Python 3.10: every file of the port parses with
+    its grammar (no nested f-string quotes, no type statements)."""
+    for path in PORT_FILES:
+        ast.parse(path.read_text(), filename=str(path),
+                  feature_version=(3, 10))
+
+
+def test_transition_blocks_are_keyed_by_ints(monkeypatch):
+    """Slices hash only from Python 3.12 on, so the blocks that Phi and G
+    are assembled from are keyed by (row block, col block) ints."""
+    from orcvio_tpu_torch.filter import propagation as prop
+
+    keys = []
+    assemble = prop._assemble
+
+    def spy(S, blocks, *a, **kw):
+        keys.extend(blocks)
+        return assemble(S, blocks, *a, **kw)
+
+    monkeypatch.setattr(prop, "_assemble", spy)
+    S, d = 2, torch.float64
+    C = torch.eye(3, dtype=d).expand(S, 3, 3)
+    v = torch.ones((S, 3), dtype=d)
+    dt = torch.full((S,), 0.005, dtype=d)
+    prop.phi_closed_form_left(C, dt, v, v, v, v, v, v, v, v[0])
+    prop.phi_euler(C, v, v, dt, True)
+    prop.phi_euler(C, v, v, dt, False)
+    prop.phi_closed_form_right(C, dt, v, v)
+    prop.noise_input_matrix(C, True)
+    assert len(keys) == 8 + 4 + 5 + 9 + 4
+    assert all(type(i) is int and type(j) is int for i, j in keys)
 
 
 FILTER_FLAGS = dict(sw_size=4, max_features=8, use_larvio=True,
@@ -90,6 +128,9 @@ def test_entry_points_need_a_device(tmp_path):
     if torch.cuda.is_available():
         assert callable(make_tracker_scan(tc, np.eye(3)))
         assert callable(make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3)))
+        assert callable(make_batched_e2e_replay(cfg, tc, np.eye(3),
+                                                np.zeros(3)))
+        assert all(d.type == "cuda" for d in make_mesh())
         assert TrackerState.create(tc).xy.is_cuda
         assert FilterState.create(cfg).P.is_cuda
         assert VioState.create(cfg, 8).sinit.ref_uv.is_cuda
@@ -99,6 +140,10 @@ def test_entry_points_need_a_device(tmp_path):
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         make_e2e_replay(cfg, tc, np.eye(3), np.zeros(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batched_e2e_replay(cfg, tc, np.eye(3), np.zeros(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
     with pytest.raises(RuntimeError, match="CUDA"):
         FilterState.create(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
