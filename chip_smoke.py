@@ -119,7 +119,25 @@ Phases:
     (d) the filter-only aggregate of bench.py:232-266 (16
     synthetic sequences of 200 frames through parallel/replay.py's
     sharded_replay_fn on a one-card mesh): frames/s and K4 launches a
-    batched frame; and no op run without a batching rule throughout.
+    batched frame; and no op run without a batching rule throughout;
+12. the object path (OrcVIO's object layer: SORT, keypoint ingest,
+    triangulation and RANSAC Kabsch, the object LM, the object-residual
+    EKF update through K4): config A of OBJECTS.md, the 12-car world of
+    eval/object_map_sim.py over 300 frames, on the host orchestrator
+    (ObjectVio.step) in float64, with and without the object update:
+    objects matched, estimated and in the ground truth equal to the JAX
+    package's float64 figures on the CPU (JAX_OBJECTS), mean IoU within
+    0.02 and ATE within 5 mm of its, the update lowering the ATE as in
+    JAX, the updates applied, K4 launched at the object update's shape
+    (D = 82, q = 1260); the staged replay (objects/staged.py) at
+    bench.py:272-368's configuration in float32: ms a frame and frames/s
+    from CUDA events after a warm-up, the map's size (at least JAX's less
+    one), ATE (at most JAX's + 1 cm), K4's launches, the host reads a
+    frame (find_syncs, each among those ROADMAP section 3 item 21 allows)
+    and the device's busy share over frames profiled around a
+    finalization; K4 against its plain version at (82, 1260) on
+    the inputs both runs gave it and on seeded ones, float32 and float64,
+    exactly symmetric, and its times beside its bound and addmm's.
 
 Then the seconds each phase took.
 
@@ -143,6 +161,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+FP64_FLOP_PER_S = 34e12    # H100 SXM float64 outside the tensor cores
 T_FRAMES = 120
 SHIFT = (1.3, -0.7)        # true flow, px per frame
 DEVICE = "cuda"
@@ -369,6 +388,39 @@ FILTER_AGG_B = 16
 FILTER_AGG_FRAMES = 200
 K3_FRAMES = 3   # frame pairs of the known-flow stream for the K3 path
 RACE_REPS = 5   # timed passes of the race, as scripts/race_extract.py
+# The object path (phase 12): config A of OBJECTS.md, the 12-car world of
+# orcvio_tpu_torch/eval/object_map_sim.py over OBJ_FRAMES frames, the host
+# orchestrator in float64, and bench.py:272-368's staged replay in float32
+# (map capacity 32, finalize budget 1). The JAX package's figures on the
+# CPU come from `python tests/test_torch_objects_e2e.py --jax-object-map`
+# (float64 config A with and without the object update; the staged replay
+# in float32 without x64), not from OBJECTS.md's older tree.
+OBJ_FRAMES = 300
+OBJ_WARM_FRAMES = 10  # the staged replay's warm-up before its timed run
+OBJ_PROFILE_FRAMES = 4  # frames a profiled window holds
+# the staged replay's timed run is split here, so that the window profiled
+# around a finalization starts from a carry it kept: two frames before its
+# first finalization (frame 22 on the card, float32)
+OBJ_PROFILE_FROM = 20
+# the host reads the staged replay may make (ROADMAP section 3 item 21):
+# (file, the text of its line); find_syncs reports file:line
+OBJ_ALLOWED_READS = (
+    ("orcvio_tpu_torch/objects/staged.py", "bool(pending.any())"),
+    ("orcvio_tpu_torch/vio.py", "bool(state.filter.initialized)"),
+    ("orcvio_tpu_torch/objects/init.py", "torch.linalg.svd("))
+OBJ_IOU_TOL = 0.02
+OBJ_ATE_TOL_M = 0.005
+OBJ_STAGED_ATE_TOL_M = 0.01
+OBJ_K4_SHAPE = (82, 1260)  # D, q: ten clones; 45 frames x (2 x 12 + 4) rows
+JAX_OBJECTS = {
+    "config_a": {
+        "update": {"mean_iou": 0.6856068314349607, "n_matched": 12,
+                   "n_est": 12, "n_gt": 12, "ate_m": 0.04695057584647721,
+                   "updates_tried": 52, "updates_applied": 52},
+        "no_update": {"mean_iou": 0.693176110297332, "n_matched": 12,
+                      "n_est": 12, "n_gt": 12,
+                      "ate_m": 0.06166449232988397}},
+    "staged_f32": {"n_map": 12, "ate_m": 0.04689790681004524}}
 
 
 def check(ok: bool, what: str) -> None:
@@ -605,15 +657,20 @@ def ptxas_usage(log):
     return out
 
 
-def profile_frames(run, n):
-    """Device busy share and kernel time by name over run(), n frames."""
+def profile_frames(run, n, warm=True, cpu=True):
+    """Device busy share and kernel time by name over run(), n frames;
+    run() once first unless warm is False (its code already ran). With
+    cpu False only the device's activity is traced: the host's ops are
+    not recorded, which keeps their cost out of the wall time and the
+    trace's reading short where a frame makes some 10^4 launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run()
+    if warm:
+        run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -719,16 +776,18 @@ def k4_times(P, K, H, nb=None):
            "with_hp_call_ms": time_ms(lambda: cov_update(P, K, H, nb=nb),
                                       preload=False),
            "bytes": nbytes, "ops": ops, "nb": nb}
-    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops)
-    out["with_hp_bound_ms"] = bound_ms(nbytes, ops + 2 * D * D * q)[0]
+    rate = FP64_FLOP_PER_S if P.dtype == torch.float64 else FP32_FLOP_PER_S
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops, rate)
+    out["with_hp_bound_ms"] = bound_ms(nbytes, ops + 2 * D * D * q, rate)[0]
     return out
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, flop_per_s=FP32_FLOP_PER_S):
     """(the least time in ms for `nbytes` of memory traffic and `ops`
-    float32 operations, and which of the two sets it)."""
+    operations at `flop_per_s`, float32's rate unless given, and which of
+    the two sets it)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / FP32_FLOP_PER_S * 1e3
+    to = ops / flop_per_s * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -1879,6 +1938,269 @@ def batched_phase(dev, bench, wc, gt_q, frame_ts):
     return report
 
 
+class K4Shapes:
+    """Records the (P, K, H, HP) of K4's first call at each (D, q) that
+    apply_ekf_update makes, the launches counted as ever."""
+
+    def __init__(self):
+        from orcvio_tpu_torch.filter import update as filter_update
+
+        self.module, self.seen = filter_update, {}
+        self.fn = filter_update.cov_update
+
+    def __enter__(self):
+        def spy(P, K, H, HP=None, nb=None):
+            key = (P.shape[0], K.shape[1])
+            if key not in self.seen:
+                self.seen[key] = tuple(x.detach().clone() for x in (
+                    P, K, H, H @ P if HP is None else HP))
+            return self.fn(P, K, H, HP, nb)
+
+        self.module.cov_update = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.cov_update = self.fn
+
+
+def allowed_object_reads():
+    """OBJ_ALLOWED_READS as the file:line names find_syncs gives."""
+    root = Path(__file__).resolve().parent
+    out = set()
+    for path, text in OBJ_ALLOWED_READS:
+        lines = (root / path).read_text().splitlines()
+        out |= {f"{Path(path).name}:{i + 1}"
+                for i, line in enumerate(lines) if text in line}
+    return out
+
+
+def config_a_run(dev, use_update, frames):
+    """run_object_mapping(WorldConfig(n_frames=frames)) in float64 on the
+    card: the map's figures, the ATE, the updates, the launches, ms a frame
+    and the K4 inputs it made. ms a frame is the host clock over the whole
+    call over its frames and flush frames: the world's set-up, the scoring
+    and the diagnostics hook's reads (some 10 a update) are in it; it runs
+    in this process after phases 1-11, so cuBLAS and cuSOLVER are set up."""
+    import torch
+
+    from orcvio_tpu_torch.eval.object_map_sim import (WorldConfig,
+                                                      run_object_mapping)
+
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with K4Shapes() as shapes:
+        res = run_object_mapping(WorldConfig(n_frames=frames),
+                                 use_object_update=use_update,
+                                 dtype=torch.float64, device=dev,
+                                 collect_diag=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = frames + 5  # and the flush frames (max_age + 2)
+    return {"mean_iou": res["mean_iou"], "n_matched": res["n_matched"],
+            "n_est": res["n_est"], "n_gt": res["n_gt"], "ate_m": res["ate_m"],
+            "updates_tried": len(res["diag"]),
+            "updates_applied": sum(d["used"] for d in res["diag"]),
+            "launches": launch_counts(), "seconds": secs,
+            "ms_per_frame": 1e3 * secs / n, "k4_shapes": sorted(shapes.seen),
+            "pr": {f"{p}m/{r}deg": v for (p, r), v in res["pr"].items()},
+            "finite": bool(np.isfinite(res["est_p"]).all())}, shapes.seen
+
+
+def staged_objects_run(dev, frames):
+    """bench.py:272-368's staged replay in float32 over `frames` frames of
+    the 12-car world: a warm-up of OBJ_WARM_FRAMES frames, then one timed
+    replay (CUDA events) split at OBJ_PROFILE_FROM, its map, ATE and K4
+    launches. From the carries kept at the warm-up's end and at the split,
+    OBJ_PROFILE_FRAMES frames without a finalization and as many around
+    the first one are profiled (the device's activity only); the latter
+    window runs once more with its host reads found and K4's inputs
+    recorded, by (D, q), and so do the first OBJ_PROFILE_FRAMES frames
+    (once-made constants are made by then, as in the other phases'
+    windows)."""
+    import torch
+
+    from orcvio_tpu_torch.dataio.synthetic import generate
+    from orcvio_tpu_torch.eval import object_map_sim as oms
+    from orcvio_tpu_torch.filter.pipeline import FrameInput
+    from orcvio_tpu_torch.objects.staged import (ObjectsStream,
+                                                 make_objects_replay)
+    from orcvio_tpu_torch.vio import VioState
+
+    f32 = torch.float32
+    wc = oms.WorldConfig(n_frames=frames)
+    sim = oms.world_sim(wc)
+    ocfg = oms.object_vio_config(wc)
+    data = generate(sim, R_b2c=oms.R_B2C, t_c_b=oms.T_C_B, dtype=f32,
+                    device=dev)
+    dets = oms.detection_stream(wc, oms.make_world(wc), data.gt_R.cpu().numpy(),
+                                data.gt_p.cpu().numpy(),
+                                np.random.default_rng(wc.seed + 1))
+    stream = ObjectsStream(*(torch.as_tensor(x).to(
+        dev, f32 if x.dtype.kind == "f" else None) for x in dets))
+    vs = VioState.create(ocfg.filter, sim.max_obs, f32, dev).replace(
+        filter=oms.initial_filter_state(ocfg.filter, sim, f32, dev))
+    replay = make_objects_replay(ocfg, sim.max_obs, map_capacity=32,
+                                 dtype=f32, device=dev)
+    frames_in = data.frames
+
+    def part(a, b, carry=None):
+        return replay(replay.init_carry(vs) if carry is None else carry,
+                      FrameInput(*(x[a:b] for x in frames_in)),
+                      ObjectsStream(*(x[a:b] for x in stream)))
+
+    W, P, k0 = OBJ_WARM_FRAMES, OBJ_PROFILE_FRAMES, OBJ_PROFILE_FROM
+    laps = [time.perf_counter()]
+    carry_w = part(0, W)[0]
+    torch.cuda.synchronize()
+    laps.append(time.perf_counter())
+    launch_counts(reset=True)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    carry_k0, outs0 = part(0, k0)
+    carry, outs1 = part(k0, frames, carry_k0)
+    e1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    ms = e0.elapsed_time(e1) / frames
+    launches = launch_counts()
+    outs = {k: torch.cat([outs0[k], outs1[k]]) for k in outs0}
+    est_p = outs["p"].double().cpu().numpy()
+    gt_p = data.gt_p.double().cpu().numpy()
+    ate = float(np.sqrt(np.mean(np.sum((est_p - gt_p) ** 2, axis=1))))
+    n_map = outs["n_map"].cpu().numpy()
+    k_fin = int(np.argmax(n_map > 0)) if (n_map > 0).any() else frames
+    check(k0 < k_fin < k0 + P and W + P <= k0,
+          f"objects staged: the profiled window, frames {k0}-{k0 + P - 1}, "
+          f"holds the first finalization (frame {k_fin}), and the window "
+          f"without one, frames {W}-{W + P - 1}, ends before it")
+    window = lambda: part(k0, k0 + P, carry_k0)  # noqa: E731
+    laps.append(time.perf_counter())
+    prof = profile_frames(window, P, warm=False, cpu=False)
+    laps.append(time.perf_counter())
+    prof_plain = profile_frames(lambda: part(W, W + P, carry_w), P,
+                                warm=False, cpu=False)
+    laps.append(time.perf_counter())
+    with K4Shapes() as shapes:  # the object update's K4 inputs
+        syncs_fin = find_syncs(window)
+    syncs_first = find_syncs(lambda: part(0, P))
+    laps.append(time.perf_counter())
+    seconds = dict(zip(("warm_up", "timed", "profile", "profile_plain",
+                        "host_reads"), np.diff(laps).tolist()))
+    return {"frames": frames, "ms_per_frame": ms, "fps": 1e3 / ms,
+            "seconds": seconds,
+            "host_s": host_s, "n_map": int(carry.omap.valid.sum()),
+            "ate_m": ate, "finite": bool(np.isfinite(est_p).all()),
+            "launches": launches, "first_insert_frame": k_fin,
+            "profile_from_frame": k0, "profile": prof,
+            "profile_without_finalize": prof_plain,
+            "profile_without_finalize_from_frame": W,
+            "host_reads_per_frame_with_finalize": len(syncs_fin) / P,
+            "host_reads_with_finalize": sorted(set(syncs_fin)),
+            "host_reads_per_frame_first": len(syncs_first) / P,
+            "host_reads_first": sorted(set(syncs_first))}, shapes.seen
+
+
+def objects_phase(dev, frames=OBJ_FRAMES):
+    """Phase 12: config A on the host orchestrator with and without the
+    object update, one run after the other, then the staged replay, then
+    K4 at the object update's shape. Returns (report, the K4 entries for
+    the kernels line)."""
+    import torch
+
+    D, q = OBJ_K4_SHAPE
+    jx = JAX_OBJECTS
+    runs, seconds = {}, {}
+    for name in ("update", "no_update"):
+        t0 = time.perf_counter()
+        runs[name], seen = config_a_run(dev, name == "update", frames)
+        seconds[f"config_a_{name}"] = time.perf_counter() - t0
+        if name == "update":
+            config_a_k4 = seen.get((D, q))
+    emit({"objects_config_a": runs})
+    up, no = runs["update"], runs["no_update"]
+    for name, r in runs.items():
+        j = jx["config_a"][name]
+        check(r["finite"] and r["n_matched"] == j["n_matched"]
+              and r["n_est"] == j["n_est"] and r["n_gt"] == j["n_gt"],
+              f"objects config A ({name}): matched {r['n_matched']}, "
+              f"estimated {r['n_est']}, ground truth {r['n_gt']} == JAX's "
+              f"{j['n_matched']}, {j['n_est']}, {j['n_gt']}")
+        check(abs(r["mean_iou"] - j["mean_iou"]) <= OBJ_IOU_TOL,
+              f"objects config A ({name}): mean IoU {r['mean_iou']:.4f} "
+              f"within {OBJ_IOU_TOL} of JAX's {j['mean_iou']:.4f}")
+        check(abs(r["ate_m"] - j["ate_m"]) <= OBJ_ATE_TOL_M,
+              f"objects config A ({name}): ATE {r['ate_m']:.5f} m within "
+              f"{OBJ_ATE_TOL_M} m of JAX's {j['ate_m']:.5f}")
+    check(up["ate_m"] < no["ate_m"],
+          f"objects config A: ATE with the object update {up['ate_m']:.5f} "
+          f"m < without {no['ate_m']:.5f} m, as in JAX "
+          f"({jx['config_a']['update']['ate_m']:.5f} < "
+          f"{jx['config_a']['no_update']['ate_m']:.5f})")
+    check(up["updates_applied"] >= 1 and up["launches"]["cov_update"] > 0
+          and (D, q) in up["k4_shapes"],
+          f"objects config A: {up['updates_applied']} object updates "
+          f"applied of {up['updates_tried']} tried (JAX "
+          f"{jx['config_a']['update']['updates_applied']}), K4 launched "
+          f"{up['launches']['cov_update']} times, at (D, q) = {(D, q)} "
+          f"among {up['k4_shapes']}")
+
+    t0 = time.perf_counter()
+    staged, staged_seen = staged_objects_run(dev, frames)
+    seconds["staged"] = time.perf_counter() - t0
+    emit({"objects_staged": staged})
+    js = jx["staged_f32"]
+    check(staged["finite"] and staged["n_map"] >= js["n_map"] - 1,
+          f"objects staged float32: map {staged['n_map']} >= JAX's "
+          f"{js['n_map']} - 1")
+    check(staged["ate_m"] <= js["ate_m"] + OBJ_STAGED_ATE_TOL_M,
+          f"objects staged float32: ATE {staged['ate_m']:.5f} m <= JAX's "
+          f"{js['ate_m']:.5f} + {OBJ_STAGED_ATE_TOL_M}")
+    check(staged["launches"]["cov_update"] > 0,
+          f"objects staged: K4 launched {staged['launches']['cov_update']} "
+          "times in the timed replay")
+    allowed = allowed_object_reads()
+    found = set(staged["host_reads_first"]) | set(
+        staged["host_reads_with_finalize"])
+    check(len(allowed) == len(OBJ_ALLOWED_READS) and found <= allowed,
+          f"objects staged: host reads {sorted(found)} among those ROADMAP "
+          f"section 3 item 21 allows, {sorted(allowed)}")
+
+    # (a) K4 at the object update's shape: the inputs config A and the
+    # staged replay gave it, and seeded ones in float32 and float64
+    t0 = time.perf_counter()
+    cases = [(f"objects {run} D={D} q={q} {dt}", *got[:3])
+             for run, dt, got in (("config A", "float64", config_a_k4),
+                                  ("staged", "float32",
+                                   staged_seen.get((D, q))))
+             if got is not None]
+    check(len(cases) == 2, f"K4's inputs at {(D, q)} from config A and the "
+                           f"staged replay: {len(cases)} of 2")
+    for dtype in (torch.float32, torch.float64):
+        cases.append((f"objects random D={D} q={q} {str(dtype)[6:]}",
+                       *k4_inputs(D, q, D + q, dtype, dev)))
+    k4_err, k4_ratio = k4_check(cases)
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        t = k4_times(*k4_inputs(D, q, D + q, dtype, dev))
+        times[str(dtype)[6:]] = {k: t[k] for k in (
+            "kernel_ms", "library_ms", "addmm_ms", "bound_ms", "bound_by",
+            "bytes", "ops", "kernel_call_ms")}
+    seconds["k4"] = time.perf_counter() - t0
+    report = {"frames": frames, "config_a": runs, "staged": staged,
+              "seconds": seconds,
+              "k4": {"max_abs_err": k4_err,
+                     "max_share_of_rounding_bound_f32": k4_ratio,
+                     "times": times}}
+    k4_entry = {"launches_objects_config_a": up["launches"]["cov_update"],
+                "launches_objects_staged": staged["launches"]["cov_update"],
+                "by_shape_objects": times,
+                "max_abs_err_objects": k4_err}
+    return report, k4_entry
+
+
 def main() -> int:
     t_lap, laps = [time.perf_counter()], {}
 
@@ -2660,6 +2982,15 @@ def main() -> int:
                 kern["name"]]
 
     lap("11 batched")
+    # ---------------- 12. the object path ----------------
+    objects, k4_objects = objects_phase(dev)
+    emit({"objects": {k: v for k, v in objects.items()
+                      if k not in ("config_a", "staged")}})
+    for kern in kernels:
+        if kern["name"] == "cov_update":
+            kern.update(k4_objects)
+
+    lap("12 objects")
     emit({"phase_seconds": laps, "total_s": sum(laps.values())})
     for kern in kernels:  # None where the library was built before this run
         kern["ptxas"] = ptxas.get(Path(kern["source"]).stem)

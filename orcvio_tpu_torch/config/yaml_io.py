@@ -8,9 +8,10 @@ file with ``cv2.FileStorage``; the port has its own reader for the subset
 of OpenCV's YAML that the reference's configs use: the ``%YAML:1.0``
 header, ``key: value`` scalars and quoted strings, nested maps
 (``intrinsics:``, ``distortion_coeffs:``), ``!!opencv-matrix`` nodes
-whose ``data: [...]`` may span several lines, comments and blank lines.
-Scalars keep FileStorage's types: an integer, a real or a string, and a
-number read as a string (or a string as a number) gives 0 (or "").
+whose ``data: [...]`` may span several lines, block sequences of scalars
+(``- item`` lines), comments and blank lines. Scalars keep FileStorage's
+types: an integer, a real or a string, and a number read as a string (or
+a string as a number) gives 0 (or "").
 """
 from __future__ import annotations
 
@@ -110,6 +111,17 @@ def _flow_seq(text: str, lines, i):
     return [_scalar(t.strip()) for t in inner.split(",") if t.strip()], i
 
 
+def _block_seq(lines, i, indent):
+    """A block sequence of scalars ("- item" lines at `indent`) from
+    lines[i:]. Returns (list, next line index)."""
+    out = []
+    while i < len(lines) and lines[i][0] == indent and \
+            lines[i][1].startswith("- "):
+        out.append(_scalar(lines[i][1][2:].strip()))
+        i += 1
+    return out, i
+
+
 def _parse_map(lines, i, indent):
     """Keys at exactly `indent` from lines[i:]; returns (dict, next i)."""
     out = {}
@@ -135,6 +147,9 @@ def _parse_map(lines, i, indent):
         elif i < len(lines) and lines[i][0] > ind and \
                 lines[i][1].startswith("["):
             value, i = _flow_seq(lines[i][1], lines, i + 1)
+        elif i < len(lines) and lines[i][0] >= ind and \
+                lines[i][1].startswith("- "):
+            value, i = _block_seq(lines, i, lines[i][0])
         elif i < len(lines) and lines[i][0] > ind:
             value, i = _parse_map(lines, i, lines[i][0])
         else:

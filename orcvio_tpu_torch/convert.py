@@ -1,11 +1,13 @@
 """Carry state from the JAX package into the port.
 
 The system has no weights; its state is the tracker's (the previous
-frame's prepared pyramid and the track table) and the VIO state (filter
-and static initializer). ``tracker_state_from_numpy`` and
-``vio_state_from_numpy`` take that state as numpy arrays (the JAX states
-read out field by field) and return the port's, so both packages can run
-onward from the same mid-sequence state.
+frame's prepared pyramid and the track table), the VIO state (filter
+and static initializer) and the object layer's (SORT's tracks, the
+object table, the pose history, the staged replay's map and carry).
+``tracker_state_from_numpy``, ``vio_state_from_numpy`` and the object
+converters take that state as numpy arrays (the JAX states read out field
+by field with ``state_to_numpy``) and return the port's, so both packages
+can run onward from the same mid-sequence state.
 """
 from __future__ import annotations
 
@@ -20,12 +22,18 @@ from .filter.state import (CloneStates, FeatureTable, FilterState, ImuState,
 from .frontend.klt import MARGIN
 from .frontend.tracker import TrackerConfig, TrackerState, level_shapes
 from .init.static_init import StaticInitState
+from .objects.kf import Kf4State, Kf7State
+from .objects.manager import ObjectTable, PoseHistory
+from .objects.sort import SortState
+from .objects.staged import MapTable, ObjectsCarry
 from .ops.dma_gather import BL, BR
 from .ops.window_gather import AlignedImage
 
 _IMU = {k: ImuState for k in ("imu", "imu_old", "imu_fej_now", "imu_fej_old")}
 _FIELD_TYPES = {FilterState: {**_IMU, "clones": CloneStates,
-                              "features": FeatureTable, "nui": NuiClones}}
+                              "features": FeatureTable, "nui": NuiClones},
+                SortState: {"kf": Kf7State},
+                ObjectTable: {"kp_kf": Kf4State}}
 
 
 def tracker_state_from_numpy(d: dict, tc: TrackerConfig, dtype=torch.float32,
@@ -99,15 +107,61 @@ def vio_state_from_numpy(d: dict, dtype=torch.float32, device=None):
         d["filter"]["initialized"])))
 
 
+def sort_state_from_numpy(d: dict, dtype=torch.float32, device=None):
+    """d: the JAX ``SortState`` as nested dicts of numpy arrays."""
+    return _state_from_numpy(SortState, d, dtype, resolve_device(device))
+
+
+def object_table_from_numpy(d: dict, dtype=torch.float32, device=None):
+    """d: the JAX ``ObjectTable`` as nested dicts of numpy arrays."""
+    return _state_from_numpy(ObjectTable, d, dtype, resolve_device(device))
+
+
+def pose_history_from_numpy(d: dict, dtype=torch.float32, device=None):
+    """d: the JAX ``PoseHistory`` as a dict of numpy arrays."""
+    return _state_from_numpy(PoseHistory, d, dtype, resolve_device(device))
+
+
+def map_table_from_numpy(d: dict, dtype=torch.float32, device=None):
+    """d: the JAX staged replay's ``MapTable`` as a dict of numpy arrays."""
+    return _state_from_numpy(MapTable, d, dtype, resolve_device(device))
+
+
+def objects_carry_from_numpy(d: dict, dtype=torch.float32, device=None):
+    """d: the JAX staged replay's ``ObjectsCarry`` as nested dicts of numpy
+    arrays ({"vio", "sort", "table", "poses", "pending", "omap"})."""
+    device = resolve_device(device)
+    return ObjectsCarry(
+        vio=vio_state_from_numpy(d["vio"], dtype, device),
+        sort=sort_state_from_numpy(d["sort"], dtype, device),
+        table=object_table_from_numpy(d["table"], dtype, device),
+        poses=pose_history_from_numpy(d["poses"], dtype, device),
+        pending=torch.as_tensor(np.array(d["pending"], bool),
+                                device=device),
+        omap=map_table_from_numpy(d["omap"], dtype, device))
+
+
+def _fields(tree):
+    """(name, value) of a dataclass's fields or a NamedTuple's."""
+    if dataclasses.is_dataclass(tree):
+        return [(f.name, getattr(tree, f.name))
+                for f in dataclasses.fields(tree)]
+    return list(tree._asdict().items())
+
+
+def _is_tree(v):
+    return dataclasses.is_dataclass(v) or (isinstance(v, tuple)
+                                           and hasattr(v, "_fields"))
+
+
 def state_to_numpy(tree) -> dict:
-    """A JAX flax struct or a port state dataclass as nested dicts of numpy
-    arrays (the layout the two converters read)."""
+    """A JAX flax struct or NamedTuple, or a port state dataclass, as
+    nested dicts of numpy arrays (the layout the converters read)."""
     out = {}
-    for f in dataclasses.fields(tree):
-        v = getattr(tree, f.name)
-        if dataclasses.is_dataclass(v):
-            out[f.name] = state_to_numpy(v)
+    for name, v in _fields(tree):
+        if _is_tree(v):
+            out[name] = state_to_numpy(v)
         elif not isinstance(v, bool):
-            out[f.name] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                           else np.asarray(v))
+            out[name] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                         else np.asarray(v))
     return out

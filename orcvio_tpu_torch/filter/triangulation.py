@@ -78,9 +78,15 @@ def solve3(A, b):
     return torch.einsum("...ij,...j->...i", adj, b) / det[..., None]
 
 
-def triangulate(cfg: FilterConfig, ct: CompactTracks, R_c2w, t_c_w) -> TriResult:
+def triangulate(cfg: FilterConfig, ct: CompactTracks, R_c2w, t_c_w,
+                p_init_world=None) -> TriResult:
     """Triangulate every row. Ref: Feature::triangulate_position
-    (feature.hpp:583)."""
+    (feature.hpp:583).
+
+    p_init_world (F, 3), optional: a world-frame prior point per row (the
+    object layer's bbox-derived centre for semantic keypoints). Where it
+    is finite and at least 0.2 m in front of the anchor camera, its depth
+    there replaces the two-view initial depth."""
     dtype = ct.uv.dtype
     Rg, tg = _gathered_cams(ct, R_c2w, t_c_w)
     a = _anchor_index(ct)
@@ -106,6 +112,11 @@ def triangulate(cfg: FilterConfig, ct: CompactTracks, R_c2w, t_c_w) -> TriResult
     depth = torch.where(denom > 1e-12,
                         (A0 * b0 + A1 * b1) / torch.clamp(denom, min=1e-12), 1.0)
     depth = torch.clamp(depth, 0.1, 1e3)
+    if p_init_world is not None:
+        h_a = torch.einsum("fji,fj->fi", R_a, p_init_world - t_a)
+        prior_ok = torch.all(torch.isfinite(p_init_world), dim=1) & \
+            (h_a[:, 2] > 0.2)
+        depth = torch.where(prior_ok, torch.clamp(h_a[:, 2], 0.2, 1e3), depth)
     x0 = torch.stack([z_anchor[:, 0], z_anchor[:, 1], 1.0 / depth], dim=1)
 
     W = torch.cat([R_rel[..., :2], t_rel[..., None]], dim=-1)  # (F, T, 3, 3)

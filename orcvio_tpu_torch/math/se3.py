@@ -1,8 +1,8 @@
 """SE(3) helpers, batched over leading dimensions.
 
 Counterpart of ``orcvio_tpu/math/se3.py`` (reference: se3_ops.hpp): what
-the filter and the dynamic initializer use. Twist convention [rho, phi],
-translation first (se3_ops.hpp:510).
+the filter, the dynamic initializer and the object layer use. Twist
+convention [rho, phi], translation first (se3_ops.hpp:510).
 """
 from __future__ import annotations
 
@@ -16,6 +16,14 @@ def exp(xi):
     rho, phi = xi[..., :3], xi[..., 3:]
     t = torch.einsum("...ij,...j->...i", so3.left_jacobian(phi), rho)
     return make_pose(so3.exp(phi), t)
+
+
+def log(T):
+    """(..., 4, 4) -> (..., 6) [rho, phi]."""
+    phi = so3.log(T[..., :3, :3])
+    rho = torch.einsum("...ij,...j->...i", so3.left_jacobian_inv(phi),
+                       T[..., :3, 3])
+    return torch.cat([rho, phi], dim=-1)
 
 
 def inverse_pose(T):
@@ -44,6 +52,37 @@ def odot(ph):
     return torch.cat([top, torch.zeros_like(top[..., :1, :])], dim=-2)
 
 
+def circled_circ(ph):
+    """circledCirc operator, (..., 4) -> (..., 6, 4): rows 0:3 hold xyz in
+    column 3, rows 3:6 -hat(xyz) in columns 0:3. Ref: se3_ops.hpp:230."""
+    xyz = ph[..., :3]
+    top = torch.cat([torch.zeros_like(xyz)[..., None, :].expand(
+        xyz.shape[:-1] + (3, 3)), xyz[..., :, None]], dim=-1)
+    bottom = torch.cat([-so3.hat(xyz), torch.zeros_like(xyz)[..., :, None]],
+                       dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def pose_se3_to_se2(T):
+    """Flatten an SE(3) pose to SE(2): keep the yaw atan2(r10, r00), zero
+    z. Ref: se3_ops.hpp:272 (whose M_PI / atan2 contradicts its own
+    comment; this is the standard extraction, as the JAX package's)."""
+    yaw = torch.atan2(T[..., 1, 0], T[..., 0, 0])
+    yaw = torch.where(torch.isfinite(yaw), yaw, 0.0)
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    z = torch.zeros_like(c)
+    one = torch.ones_like(c)
+    R = torch.stack([torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1),
+                     torch.stack([z, z, one], -1)], dim=-2)
+    return make_pose(R, torch.stack([T[..., 0, 3], T[..., 1, 3], z], dim=-1))
+
+
+def project_image(x):
+    """Perspective division: (..., 3) or (..., 4) -> (..., 2). Ref:
+    se3_ops.hpp:304."""
+    return x[..., :2] / x[..., 2:3]
+
+
 def project_image_df(x):
     """Jacobian of perspective division wrt the 3D point, (..., 3) ->
     (..., 2, 3). Ref: se3_ops.hpp:331."""
@@ -60,6 +99,43 @@ def project_image_df(x):
 def to_homogeneous(pts):
     """(..., 3) -> (..., 4)."""
     return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
+def project_object_points(P, wTo, points_o):
+    """Project homogeneous object-frame points. Ref: se3_ops.hpp:351.
+    P (..., 3, 4) camera projection, wTo (..., 4, 4), points_o (..., N, 4)
+    -> (..., N, 2)."""
+    return project_image(torch.einsum("...ij,...kj->...ki", P @ wTo,
+                                      points_o))
+
+
+def project_object_points_df_object(P, wTo, points_o,
+                                    use_left_perturbation: bool):
+    """d(projection)/d(object pose twist), (..., N, 2, 6). Ref:
+    se3_ops.hpp:383. Left: dpi P odot(wTo p); right: dpi P wTo odot(p)."""
+    pts_w = torch.einsum("...ij,...kj->...ki", wTo, points_o)
+    dpi = project_image_df(torch.einsum("...ij,...kj->...ki", P, pts_w))
+    if use_left_perturbation:
+        J = torch.einsum("...ij,...kjl->...kil", P, odot(pts_w))
+    else:
+        J = torch.einsum("...ij,...kjl->...kil", P @ wTo, odot(points_o))
+    return dpi @ J
+
+
+def project_object_points_df_camera(P, wTo, cTw, points_o,
+                                    use_left_perturbation: bool):
+    """d(projection)/d(camera pose twist), (..., N, 2, 6). Ref:
+    se3_ops.hpp:431. Left: -dpi [I|0] cTw odot(wTo p); right:
+    -dpi [I|0] odot(cTw wTo p)."""
+    pts_w = torch.einsum("...ij,...kj->...ki", wTo, points_o)
+    dpi = project_image_df(torch.einsum("...ij,...kj->...ki", P, pts_w))
+    if use_left_perturbation:
+        J = torch.einsum("...ij,...kjl->...kil", cTw[..., :3, :],
+                         odot(pts_w))
+    else:
+        pts_cam4 = torch.einsum("...ij,...kj->...ki", cTw, pts_w)
+        J = odot(pts_cam4)[..., :3, :]
+    return -(dpi @ J)
 
 
 def get_cam_wrt_imu_se3_jacobian(R_b2c, t_c_b, R_w2c, t_b_w,
@@ -84,3 +160,11 @@ def get_cam_wrt_imu_se3_jacobian(R_b2c, t_c_b, R_w2c, t_b_w,
         bottom = [R_b2c.expand(batch + (3, 3)), torch.zeros_like(eye)]
     return torch.cat([torch.cat(top, dim=-1), torch.cat(bottom, dim=-1)],
                      dim=-2)
+
+
+def displacement(T1, T2):
+    """((3 - tr(R1^T R2)) / 2, |t1 - t2|). Ref: se3_ops.hpp (displacement)."""
+    R1, R2 = T1[..., :3, :3], T2[..., :3, :3]
+    disp_r = (3.0 - torch.diagonal(R1.transpose(-1, -2) @ R2, dim1=-2,
+                                   dim2=-1).sum(-1)) / 2.0
+    return disp_r, torch.linalg.norm(T1[..., :3, 3] - T2[..., :3, 3], dim=-1)

@@ -124,3 +124,15 @@ def Hl(w):
     c = _coeff_c(t2, theta, small)[..., None]
     d = _coeff_d(t2, theta, small)[..., None]
     return 0.5 * _eye_like(W) + c * W + d * (W @ W)
+
+
+def left_jacobian_inv(w):
+    """Inverse of the SO(3) left Jacobian (closed form):
+    I - W/2 + (1/t^2 - (1 + cos t) / (2 t sin t)) W^2."""
+    t2, theta, small = _safe_theta(w)
+    W = hat(w)
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + t2 / 720.0,
+        1.0 / (theta * theta)
+        - (1.0 + torch.cos(theta)) / (2.0 * theta * torch.sin(theta)))
+    return _eye_like(W) - 0.5 * W + cot_term[..., None] * (W @ W)

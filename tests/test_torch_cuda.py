@@ -9,8 +9,8 @@ hence ``--noconftest``):
 
 K4 (``csrc/cov_update.cu``): within the rounding bound of two length-q
 sums (``k4_tolerance``, entry by entry, the same as chip_smoke.py's), in
-float32 and float64, at ragged and main-path shapes, on both sides of
-q = 32, where the small kernel hands over to the tiled one; exactly
+float32 and float64, at ragged and main-path shapes and the object
+update's (D = 82, q = 1260), on both sides of q = 32, where the small kernel hands over to the tiled one; exactly
 symmetric, whatever the shape; D = 0 gives an empty output. Its nb
 entry (Schmidt) keeps P[nb:, nb:] bit for bit, nb on and off the 32-row
 tile, on both kernels.
@@ -121,6 +121,23 @@ def test_cov_update_nb_keeps_the_block(card, dtype, D, q, nb):
     assert torch.equal(out, out.T)
     assert torch.equal(out[nb:, nb:], P[nb:, nb:])
     ref = cov_update_plain(P, K, H, HP, nb)
+    err = (out - ref).abs().double()
+    assert bool((err <= k4_tolerance(P, K, HP, ref)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cov_update_at_the_object_update_shape(card, dtype):
+    """The object-residual update's shape: D = 82 (config A's ten clones),
+    q = 45 x (2 x 12 + 4) = 1260 stacked rows."""
+    D, q = 82, 1260
+    P, K, H = _inputs(D, q, 7, dtype, card)
+    HP = H @ P
+    n = cov_update.launches
+    out = cov_update(P, K, H, HP)
+    torch.cuda.synchronize()
+    assert cov_update.launches == n + 1
+    assert torch.equal(out, out.T)
+    ref = cov_update_plain(P, K, H, HP)
     err = (out - ref).abs().double()
     assert bool((err <= k4_tolerance(P, K, HP, ref)).all())
 

@@ -5,7 +5,8 @@
   imageio, which the card's machine does not have.
 * Importing the whole port leaves jax out of sys.modules.
 * Entry points without device= run on CUDA, and raise where there is none
-  (the batched replay and parallel/'s mesh too).
+  (the batched replay, parallel/'s mesh and the object layer's
+  orchestrator, staged replay and config-A run too).
 * Every filter flag runs: the IMU intrinsics and Schmidt flags build a
   filter state, a frame and a replay on the CPU.
 * Kernel wrappers given CPU tensors take the plain versions: their launch
@@ -74,6 +75,12 @@ def test_port_import_leaves_jax_unloaded():
     assert "orcvio_tpu_torch.frontend.tracker" in names
     assert "orcvio_tpu_torch.scripts.race_extract" in names
     assert "orcvio_tpu_torch.parallel.replay" in names
+    for mod in ("residuals", "kf", "sort", "lm", "init", "manager", "update",
+                "vio_objects", "staged", "persistence"):
+        assert f"orcvio_tpu_torch.objects.{mod}" in names
+    for mod in ("eval.objects", "eval.object_map_sim", "config.objects_yaml",
+                "dataio.render_object"):
+        assert f"orcvio_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -170,6 +177,19 @@ def test_entry_points_need_a_device(tmp_path):
             np.ones((1, 2), bool), np.eye(3), np.zeros(3))
     with pytest.raises(RuntimeError, match="CUDA"):
         run_vio.main(["--euroc", str(tmp_path)])
+    from orcvio_tpu_torch.eval.object_map_sim import (WorldConfig,
+                                                      object_vio_config,
+                                                      run_object_mapping)
+    from orcvio_tpu_torch.objects.staged import make_objects_replay
+    from orcvio_tpu_torch.objects.vio_objects import ObjectVio
+
+    ocfg = object_vio_config(WorldConfig(n_frames=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ObjectVio(ocfg, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_objects_replay(ocfg, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_object_mapping(WorldConfig(n_frames=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         stage_sequence(np.zeros((1, 64, 96), np.uint8), [0.0],
                        np.zeros((1, 2)), np.zeros((1, 2, 3)),
