@@ -22,7 +22,7 @@ Phases:
     positions cut from the main path's last frames; K2 from both sources
     (the windows K1 cuts and the levels read in place), at the 3 levels
     and in the level-0 backward pass, the two bit-identical;
- 4. times with CUDA events: tracker ms/frame (11 scans), each kernel's
+ 4. times with CUDA events: tracker ms/frame (5 scans), each kernel's
     time beside its bound, its plain version's and (K1) an
     advanced-indexing gather's; K2 on the main path's route and on the
     windows. A bound counts the bytes
@@ -35,7 +35,7 @@ Phases:
     sequence as the EuRoC writer makes it in memory, rendered on the card
     (300 frames, 60 of them static): init,
     finite poses, the ATE against the JAX package's on the same stream,
-    the launch count of every kernel; ms/frame over 2 replays of 100
+    the launch count of every kernel; ms/frame over 1 replay of 100
     flight frames after init; 20 of them under sync debug mode; 10 of them
     profiled;
  6. K4 against its plain version on the (P, K, H) the replay gave it (the
@@ -117,13 +117,13 @@ Phases:
     4, 3), the rows bit-identical, row 0's ATE against JAX's over as many
     frames, no host synchronisation in 20 batched frames, 4 profiled;
     (d) the filter-only aggregate of bench.py:232-266 (16
-    synthetic sequences of 200 frames through parallel/replay.py's
+    synthetic sequences of 100 frames through parallel/replay.py's
     sharded_replay_fn on a one-card mesh): frames/s and K4 launches a
     batched frame; and no op run without a batching rule throughout;
 12. the object path (OrcVIO's object layer: SORT, keypoint ingest,
     triangulation and RANSAC Kabsch, the object LM, the object-residual
-    EKF update through K4): config A of OBJECTS.md, the 12-car world of
-    eval/object_map_sim.py over 300 frames, on the host orchestrator
+    EKF update through K4): config A of OBJECTS.md, the world of
+    eval/object_map_sim.py (6 cars over 150 frames), on the host orchestrator
     (ObjectVio.step) in float64, with and without the object update:
     objects matched, estimated and in the ground truth equal to the JAX
     package's float64 figures on the CPU (JAX_OBJECTS), mean IoU within
@@ -137,7 +137,25 @@ Phases:
     and the device's busy share over frames profiled around a
     finalization; K4 against its plain version at (82, 1260) on
     the inputs both runs gave it and on seeded ones, float32 and float64,
-    exactly symmetric, and its times beside its bound and addmm's.
+    exactly symmetric, and its times beside its bound and addmm's. Config
+    A's pair runs at scripts/object_map_eval.py --quick's size (6 cars over
+    150 frames, OBJ_A_WORLD), its JAX figures recomputed there; the staged
+    replay at the 12-car world's 300 frames;
+13. the image path of the objects (config B of OBJECTS.md: composite
+    renders of 3 cars, 240x240, their pixel boxes, the StarMap keypoint
+    network at the shipped widths in float32, SORT, keypoint ingest,
+    init and LM, the object update through K4): (a) constructing the
+    detector turns cuDNN's TF32 off; the network on the card against the
+    same network in float64 on the CPU on 8 seeded crops of config B's
+    renders (heat within 1e-4, the same found masks, untied peaks within
+    0.05 heatmap px); (b) run_cnn_object_mapping over 260 frames, the
+    filter in float64: objects matched, estimated and in the ground truth
+    equal to the JAX package's float64 CPU figures, mean IoU within 0.03
+    of its, the finalizations and updates recorded, K4 launched at (82,
+    1260), ms a frame on the host clock split into render, detector and
+    step; K4 against its plain version on config B's inputs; (c) the
+    port's scripts/starmap_bench.py (M = 4 crops a frame as one batch,
+    100 frames): ms a frame and crops/s from CUDA events, kernels a crop.
 
 Then the seconds each phase took.
 
@@ -185,8 +203,11 @@ except ImportError as e:  # chip_smoke.py without the checkout around it
 # does for EuRoC epochs.
 E2E_FRAMES = 300
 E2E_WINDOW = 100  # flight frames after init per timed replay
-E2E_REPLAYS = 2  # timed replays of the window
-TRACKER_SCANS = 11  # timed scans of the known-flow stream
+# timed replays of the window and scans of the known-flow stream: few, so
+# that all 13 phases fit the script's time on the slower hosts (PERF.md
+# section 5)
+E2E_REPLAYS = 1
+TRACKER_SCANS = 5
 # The JAX package's ATE on this stream: its make_e2e_replay in float32 on a
 # CPU (on the stream the port's make_stream makes on the CPU), posyaw
 # alignment over all frames, and over the first 160 (phase 11's bench
@@ -385,17 +406,22 @@ BATCH_START = 25
 BATCH_FRAMES = 160
 BATCH_PROFILE_FRAMES = 4
 FILTER_AGG_B = 16
-FILTER_AGG_FRAMES = 200
+FILTER_AGG_FRAMES = 100  # bench.py's 200, halved for the script's time
 K3_FRAMES = 3   # frame pairs of the known-flow stream for the K3 path
 RACE_REPS = 5   # timed passes of the race, as scripts/race_extract.py
-# The object path (phase 12): config A of OBJECTS.md, the 12-car world of
-# orcvio_tpu_torch/eval/object_map_sim.py over OBJ_FRAMES frames, the host
+# The object path (phase 12): config A of OBJECTS.md, the world of
+# orcvio_tpu_torch/eval/object_map_sim.py at OBJ_A_WORLD, the host
 # orchestrator in float64, and bench.py:272-368's staged replay in float32
-# (map capacity 32, finalize budget 1). The JAX package's figures on the
+# on the 12-car world over OBJ_FRAMES frames (map capacity 32, finalize
+# budget 1). The JAX package's figures on the
 # CPU come from `python tests/test_torch_objects_e2e.py --jax-object-map`
 # (float64 config A with and without the object update; the staged replay
 # in float32 without x64), not from OBJECTS.md's older tree.
 OBJ_FRAMES = 300
+# config A's pair of runs at scripts/object_map_eval.py --quick's size (6
+# cars over 150 frames), so that phase 13 fits the script's time; the
+# 300-frame, 12-car world stays in tests/test_torch_objects_config_a.py
+OBJ_A_WORLD = {"n_objects": 6, "n_frames": 150}
 OBJ_WARM_FRAMES = 10  # the staged replay's warm-up before its timed run
 OBJ_PROFILE_FRAMES = 4  # frames a profiled window holds
 # the staged replay's timed run is split here, so that the window profiled
@@ -412,15 +438,33 @@ OBJ_IOU_TOL = 0.02
 OBJ_ATE_TOL_M = 0.005
 OBJ_STAGED_ATE_TOL_M = 0.01
 OBJ_K4_SHAPE = (82, 1260)  # D, q: ten clones; 45 frames x (2 x 12 + 4) rows
+# The image path of the objects (phase 13): config B of OBJECTS.md
+# (eval/object_map_cnn.py: 3 cars, 240x240 composite renders, the StarMap
+# detector at the shipped weights, 260 frames, the filter in float64).
+# The JAX package's float64 CPU figures come from `python
+# tests/test_torch_starmap_e2e.py --jax-config-b` on this tree; the
+# network's card run is held against its own float64 CPU run on
+# CNN_CROPS seeded crops of config B's renders (frames drawn among the
+# first CNN_CROP_FRAMES).
+CNN_CROPS = 8
+CNN_CROP_FRAMES = 112  # the first two cars' passes
+CNN_SEED = 13
+CNN_HEAT_TOL = 1e-4
+CNN_PEAK_TOL_PX = 0.05
+CNN_TIE = 1e-5  # peaks whose score lies this close to another's may swap
+CNN_IOU_TOL = 0.03
 JAX_OBJECTS = {
-    "config_a": {
-        "update": {"mean_iou": 0.6856068314349607, "n_matched": 12,
-                   "n_est": 12, "n_gt": 12, "ate_m": 0.04695057584647721,
-                   "updates_tried": 52, "updates_applied": 52},
-        "no_update": {"mean_iou": 0.693176110297332, "n_matched": 12,
-                      "n_est": 12, "n_gt": 12,
-                      "ate_m": 0.06166449232988397}},
-    "staged_f32": {"n_map": 12, "ate_m": 0.04689790681004524}}
+    "config_a": {  # at OBJ_A_WORLD
+        "update": {"mean_iou": 0.6106852127249147, "n_matched": 4,
+                   "n_est": 4, "n_gt": 6, "ate_m": 0.11258068157051096,
+                   "updates_tried": 6, "updates_applied": 6},
+        "no_update": {"mean_iou": 0.6098974007019675, "n_matched": 4,
+                      "n_est": 4, "n_gt": 6,
+                      "ate_m": 0.11904504550032664}},
+    "staged_f32": {"n_map": 12, "ate_m": 0.04689790681004524},
+    "config_b": {"mean_iou": 0.3812230405936208, "n_matched": 3, "n_est": 3,
+                 "n_gt": 3, "finalizations": 4, "finalized_ok": 3,
+                 "updates_tried": 3, "updates_applied": 1}}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1975,8 +2019,8 @@ def allowed_object_reads():
 
 
 def config_a_run(dev, use_update, frames):
-    """run_object_mapping(WorldConfig(n_frames=frames)) in float64 on the
-    card: the map's figures, the ATE, the updates, the launches, ms a frame
+    """run_object_mapping(WorldConfig(**OBJ_A_WORLD)) over `frames` frames
+    in float64 on the card: the map's figures, the ATE, the updates, the launches, ms a frame
     and the K4 inputs it made. ms a frame is the host clock over the whole
     call over its frames and flush frames: the world's set-up, the scoring
     and the diagnostics hook's reads (some 10 a update) are in it; it runs
@@ -1990,7 +2034,8 @@ def config_a_run(dev, use_update, frames):
     launch_counts(reset=True)
     t0 = time.perf_counter()
     with K4Shapes() as shapes:
-        res = run_object_mapping(WorldConfig(n_frames=frames),
+        res = run_object_mapping(WorldConfig(**{**OBJ_A_WORLD,
+                                                "n_frames": frames}),
                                  use_object_update=use_update,
                                  dtype=torch.float64, device=dev,
                                  collect_diag=True)
@@ -2115,7 +2160,8 @@ def objects_phase(dev, frames=OBJ_FRAMES):
     runs, seconds = {}, {}
     for name in ("update", "no_update"):
         t0 = time.perf_counter()
-        runs[name], seen = config_a_run(dev, name == "update", frames)
+        runs[name], seen = config_a_run(dev, name == "update",
+                                        OBJ_A_WORLD["n_frames"])
         seconds[f"config_a_{name}"] = time.perf_counter() - t0
         if name == "update":
             config_a_k4 = seen.get((D, q))
@@ -2189,7 +2235,8 @@ def objects_phase(dev, frames=OBJ_FRAMES):
             "kernel_ms", "library_ms", "addmm_ms", "bound_ms", "bound_by",
             "bytes", "ops", "kernel_call_ms")}
     seconds["k4"] = time.perf_counter() - t0
-    report = {"frames": frames, "config_a": runs, "staged": staged,
+    report = {"frames": frames, "config_a_world": OBJ_A_WORLD,
+              "config_a": runs, "staged": staged,
               "seconds": seconds,
               "k4": {"max_abs_err": k4_err,
                      "max_share_of_rounding_bound_f32": k4_ratio,
@@ -2199,6 +2246,171 @@ def objects_phase(dev, frames=OBJ_FRAMES):
                 "by_shape_objects": times,
                 "max_abs_err_objects": k4_err}
     return report, k4_entry
+
+
+def config_b_crops(det, n=CNN_CROPS):
+    """n crops of config B's renders, cut and resized as the detector cuts
+    them ((n, 3, S, S) on its device): the frames drawn with CNN_SEED
+    among the first CNN_CROP_FRAMES that hold a box, rendered in order as
+    run_cnn_object_mapping renders them."""
+    import torch
+
+    from orcvio_tpu_torch.dataio.synthetic import generate
+    from orcvio_tpu_torch.eval import object_map_cnn as cb
+    from orcvio_tpu_torch.eval.object_map_sim import make_world
+
+    wc = cb.world_config()
+    objs = make_world(wc)
+    data = generate(cb.world_sim(wc), R_b2c=cb.R_B2C, t_c_b=cb.T_C_B,
+                    dtype=torch.float64, device="cpu")
+    gt_R, gt_p = data.gt_R.numpy(), data.gt_p.numpy()
+    rng = np.random.default_rng(5)
+    seen = []
+    for k in range(CNN_CROP_FRAMES):
+        img, boxes = cb.render_frame(wc, objs,
+                                     cb.camera_pose(gt_R[k], gt_p[k]), rng)
+        if len(boxes):
+            seen.append((k, img, boxes[0]))
+    pick = np.sort(np.random.default_rng(CNN_SEED).choice(
+        len(seen), n, replace=False))
+    crops = [det.crop(seen[i][1], seen[i][2])[0] for i in pick]
+    S = det.size
+    return torch.stack(crops)[:, None].expand(n, 3, S, S).contiguous(), \
+        [seen[i][0] for i in pick]
+
+
+def starmap_check(dev):
+    """Phase 13 (a): the detector's construction turns TF32 off; the
+    network at the shipped widths in float32 on the card against the same
+    network in float64 on the CPU, on config B's crops: heat within
+    CNN_HEAT_TOL, the found masks and valid peaks equal, the peaks within
+    CNN_PEAK_TOL_PX heatmap px wherever no other peak's score lies within
+    CNN_TIE."""
+    import torch
+
+    from orcvio_tpu_torch.dataio.render_object import CAR_KEYPOINTS
+    from orcvio_tpu_torch.eval import object_map_cnn as cb
+    from orcvio_tpu_torch.models.starmap import (detect_keypoints,
+                                                 load_pretrained)
+    from orcvio_tpu_torch.objects.detector import StarMapKeypointDetector
+
+    torch.backends.cudnn.allow_tf32 = True
+    det = StarMapKeypointDetector(CAR_KEYPOINTS, cb.camera_K(), device=dev)
+    tf32_off = not torch.backends.cudnn.allow_tf32
+    check(tf32_off, "phase 13: constructing the detector turned cuDNN's "
+                    "TF32 off (set on before)")
+    crops, frames = config_b_crops(det)
+    ref, _ = load_pretrained(device="cpu", dtype=torch.float64)
+    x64 = crops.double().cpu()
+    canon = torch.as_tensor(CAR_KEYPOINTS)
+    with torch.no_grad():
+        heat = torch.sigmoid(det.model(crops)[-1][:, 0]).double().cpu()
+        heat_ref = torch.sigmoid(ref(x64)[-1][:, 0])
+    got = detect_keypoints(det.model, crops, canon.to(dev, torch.float32))
+    want = detect_keypoints(ref, x64, canon.double())
+    got = {k: v.cpu() for k, v in got.items()}
+    heat_err = float((heat - heat_ref).abs().max())
+    same_found = bool(torch.equal(got["found"], want["found"]))
+    same_valid = bool(torch.equal(got["peaks_valid"], want["peaks_valid"]))
+    s = want["peaks_score"]
+    gap = (s[:, :, None] - s[:, None, :]).abs() + 9 * torch.eye(s.shape[1])
+    clear = want["peaks_valid"] & (gap.amin(-1) > CNN_TIE)
+    err = (got["peaks_xy"].double() - want["peaks_xy"]).norm(dim=-1)
+    peak_err = float(err[clear].max()) if bool(clear.any()) else None
+    check(heat_err <= CNN_HEAT_TOL and same_found and same_valid,
+          f"phase 13: StarMap float32 on the card against float64 on the "
+          f"CPU, {CNN_CROPS} crops of config B (frames {frames}): heat "
+          f"within {heat_err:.2e} <= {CNN_HEAT_TOL}, found masks "
+          f"{'equal' if same_found else 'differ'}, valid peaks "
+          f"{'equal' if same_valid else 'differ'}")
+    check(peak_err is not None and peak_err <= CNN_PEAK_TOL_PX,
+          f"phase 13: {int(clear.sum())} untied peaks within {peak_err} <= "
+          f"{CNN_PEAK_TOL_PX} heatmap px of the float64 CPU run")
+    return {"tf32_off": tf32_off, "crop_frames": frames,
+            "heat_max_abs_err": heat_err, "found_equal": same_found,
+            "peaks_valid_equal": same_valid,
+            "untied_peaks": int(clear.sum()),
+            "peak_max_err_px": peak_err,
+            "found_per_crop": got["found"].sum(-1).tolist()}
+
+
+def config_b_run(dev):
+    """Phase 13 (b): run_cnn_object_mapping over config B's 260 frames on
+    the card, the filter in float64: the map's figures against the JAX
+    package's, the finalizations and updates, K4's launches and shapes,
+    ms a frame (host clock) split into render, detector and the rest of
+    the step. Returns (report, K4's inputs at the object update's
+    shape)."""
+    import torch
+
+    from orcvio_tpu_torch.eval.object_map_cnn import run_cnn_object_mapping
+
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    with K4Shapes() as shapes:
+        res = run_cnn_object_mapping(device=dev)
+    launches = launch_counts()
+    report = {
+        "mean_iou": res["mean_iou"], "n_matched": res["n_matched"],
+        "n_est": res["n_est"], "n_gt": res["n_gt"],
+        "finalizations": len(res["finalizations"]),
+        "finalized_ok": sum(f["ok"] for f in res["finalizations"]),
+        "updates_tried": res["updates_tried"],
+        "updates_applied": res["updates_applied"],
+        "seconds": res["seconds"], "ms_per_frame": res["ms_per_frame"],
+        "ms_per_frame_split": {k: 1e3 * v / res["n_steps"] for k, v in
+                               res["seconds_split"].items()},
+        "launches": launches, "k4_shapes": sorted(shapes.seen)}
+    jb = JAX_OBJECTS["config_b"]
+    check(all(report[k] == jb[k] for k in ("n_matched", "n_est", "n_gt")),
+          f"phase 13: config B matched {report['n_matched']}, estimated "
+          f"{report['n_est']}, ground truth {report['n_gt']} == JAX's "
+          f"{jb['n_matched']}, {jb['n_est']}, {jb['n_gt']}")
+    check(abs(report["mean_iou"] - jb["mean_iou"]) <= CNN_IOU_TOL,
+          f"phase 13: config B mean IoU {report['mean_iou']:.4f} within "
+          f"{CNN_IOU_TOL} of JAX's {jb['mean_iou']:.4f}")
+    check(launches["cov_update"] > 0 and OBJ_K4_SHAPE in shapes.seen,
+          f"phase 13: K4 launched {launches['cov_update']} times in config "
+          f"B, at (D, q) = {OBJ_K4_SHAPE} among {sorted(shapes.seen)} "
+          f"({report['updates_tried']} object updates tried, "
+          f"{report['updates_applied']} applied; JAX {jb['updates_tried']}, "
+          f"{jb['updates_applied']})")
+    return report, shapes.seen.get(OBJ_K4_SHAPE)
+
+
+def image_objects_phase(dev):
+    """Phase 13: the image path of the objects. (a) StarMap on the card
+    against its float64 CPU run, (b) config B over 260 frames, (c) the
+    port's starmap_bench (bench.py:371-393's StarMap figure): ms a frame
+    at M = 4 crops a frame and crops/s from CUDA events, kernels a crop;
+    then K4 against its plain version on the inputs config B gave it.
+    Returns (report, the K4 entries for the kernels line)."""
+    from orcvio_tpu_torch.scripts import starmap_bench
+
+    seconds, t0 = {}, time.perf_counter()
+    net = starmap_check(dev)
+    seconds["network"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg_b, k4_in = config_b_run(dev)
+    seconds["config_b"] = time.perf_counter() - t0
+    emit({"objects_config_b": cfg_b})
+    t0 = time.perf_counter()
+    bench = starmap_bench.run(dev)
+    seconds["starmap_bench"] = time.perf_counter() - t0
+    check(bench["finite"] and bench["kernels_per_crop"] is not None,
+          f"phase 13: starmap_bench {bench['ms_per_frame']:.3f} ms a frame "
+          f"of {bench['boxes_per_frame']} crops, "
+          f"{bench['crops_per_sec']:.1f} crops/s, "
+          f"{bench['kernels_per_crop']} kernels a crop")
+    D, q = OBJ_K4_SHAPE
+    k4_err = {}
+    if k4_in is not None:
+        k4_err, _ = k4_check([(f"objects config B D={D} q={q} float64",
+                               *k4_in[:3])])
+    report = {"network": net, "config_b": cfg_b, "starmap_bench": bench,
+              "seconds": seconds}
+    return report, {"launches_objects_config_b": cfg_b["launches"][
+        "cov_update"], "max_abs_err_objects_config_b": k4_err}
 
 
 def main() -> int:
@@ -2991,6 +3203,15 @@ def main() -> int:
             kern.update(k4_objects)
 
     lap("12 objects")
+    # ---------------- 13. the image path of the objects ----------------
+    images, k4_images = image_objects_phase(dev)
+    emit({"objects_images": {k: v for k, v in images.items()
+                             if k != "config_b"}})
+    for kern in kernels:
+        if kern["name"] == "cov_update":
+            kern.update(k4_images)
+
+    lap("13 object images")
     emit({"phase_seconds": laps, "total_s": sum(laps.values())})
     for kern in kernels:  # None where the library was built before this run
         kern["ptxas"] = ptxas.get(Path(kern["source"]).stem)

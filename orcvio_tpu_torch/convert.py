@@ -1,13 +1,15 @@
 """Carry state from the JAX package into the port.
 
-The system has no weights; its state is the tracker's (the previous
-frame's prepared pyramid and the track table), the VIO state (filter
-and static initializer) and the object layer's (SORT's tracks, the
-object table, the pose history, the staged replay's map and carry).
+The system's state is the tracker's (the previous frame's prepared
+pyramid and the track table), the VIO state (filter and static
+initializer) and the object layer's (SORT's tracks, the object table, the
+pose history, the staged replay's map and carry).
 ``tracker_state_from_numpy``, ``vio_state_from_numpy`` and the object
 converters take that state as numpy arrays (the JAX states read out field
 by field with ``state_to_numpy``) and return the port's, so both packages
-can run onward from the same mid-sequence state.
+can run onward from the same mid-sequence state. Its one set of weights,
+the StarMap keypoint network's, comes from flax's variables through
+``starmap_state_dict_from_flax``.
 """
 from __future__ import annotations
 
@@ -165,3 +167,98 @@ def state_to_numpy(tree) -> dict:
             out[name] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                          else np.asarray(v))
     return out
+
+
+def _flax_leaves(tree, prefix=()):
+    """{path tuple: array} of a nested dict of arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flax_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _starmap_modules(cfg: dict):
+    """(flax module path, torch module name, "conv" or "bn") of every
+    layer of StarMapNet(**cfg), in flax's creation order: its compact
+    modules number each type by creation, so StarMapNet's convolutions
+    run across the stacks (Conv_1 to Conv_4 in stack 0, Conv_5 and Conv_6
+    in the last), a Residual's skip is its Conv_3 (only where the channel
+    count changes) and an Hourglass makes up1, low1, then its inner
+    Hourglass_0 (or, at depth 1, the low2 residuals), then low3."""
+    n, nf = cfg.get("n_modules", 1), cfg["n_feats"]
+    out = []
+
+    def residual(fp, tp, c_in, f):
+        for i in range(3):
+            out.append((fp + (f"BatchNorm_{i}",), f"{tp}.bn{i}", "bn"))
+            out.append((fp + (f"Conv_{i}",), f"{tp}.conv{i}", "conv"))
+        if c_in != f:
+            out.append((fp + ("Conv_3",), f"{tp}.skip", "conv"))
+
+    def hourglass(fp, tp, depth):
+        names = ["up1", "low1"] + ([] if depth > 1 else ["low2"]) + ["low3"]
+        r = 0
+        for name in names:
+            if name == "low3" and depth > 1:
+                hourglass(fp + ("Hourglass_0",), f"{tp}.inner", depth - 1)
+            for k in range(n):
+                residual(fp + (f"Residual_{r}",), f"{tp}.{name}.{k}", nf, nf)
+                r += 1
+
+    out += [(("Conv_0",), "stem", "conv"), (("BatchNorm_0",), "stem_bn", "bn")]
+    for i, (c_in, f) in enumerate(((64, 128), (128, 128), (128, nf))):
+        residual((f"Residual_{i}",), f"res{i}", c_in, f)
+    r, c = 3, 1
+    for i in range(cfg["n_stack"]):
+        tp = f"stacks.{i}"
+        hourglass((f"Hourglass_{i}",), f"{tp}.hg", cfg["hg_depth"])
+        for k in range(n):
+            residual((f"Residual_{r}",), f"{tp}.res.{k}", nf, nf)
+            r += 1
+        heads = ["lin", "out"] + (["ll_", "out_"] if i < cfg["n_stack"] - 1
+                                  else [])
+        for name in heads:
+            out.append(((f"Conv_{c}",), f"{tp}.{name}", "conv"))
+            c += 1
+        out.append(((f"BatchNorm_{i + 1}",), f"{tp}.bn", "bn"))
+    return out
+
+
+def starmap_state_dict_from_flax(params: dict, batch_stats: dict,
+                                 cfg: dict) -> dict:
+    """The state dict of ``models/starmap.py:StarMapNet(**cfg)`` from the
+    JAX package's flax variables (nested dicts of numpy arrays): HWIO
+    kernels become OIHW weights, BN's scale, bias, mean and var its
+    weight, bias, running_mean and running_var. Raises unless every flax
+    leaf is taken exactly once."""
+    leaves = {("params",) + k: v for k, v in _flax_leaves(params).items()}
+    leaves.update({("batch_stats",) + k: v
+                   for k, v in _flax_leaves(batch_stats).items()})
+    taken = {}
+
+    def take(path):
+        if path in taken or path not in leaves:
+            raise KeyError(f"flax leaf {'/'.join(path)} "
+                           f"{'taken twice' if path in taken else 'missing'}")
+        taken[path] = True
+        return torch.from_numpy(np.array(leaves[path]))
+
+    sd = {}
+    for fp, tp, kind in _starmap_modules(cfg):
+        if kind == "conv":
+            sd[f"{tp}.weight"] = take(("params",) + fp + ("kernel",)).permute(
+                3, 2, 0, 1).contiguous()
+            sd[f"{tp}.bias"] = take(("params",) + fp + ("bias",))
+        else:
+            sd[f"{tp}.weight"] = take(("params",) + fp + ("scale",))
+            sd[f"{tp}.bias"] = take(("params",) + fp + ("bias",))
+            sd[f"{tp}.running_mean"] = take(("batch_stats",) + fp + ("mean",))
+            sd[f"{tp}.running_var"] = take(("batch_stats",) + fp + ("var",))
+            sd[f"{tp}.num_batches_tracked"] = torch.tensor(0)
+    left = sorted("/".join(k) for k in leaves if k not in taken)
+    if left:
+        raise KeyError(f"flax leaves not taken: {left}")
+    return sd

@@ -20,7 +20,7 @@ from typing import List
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import no_tf32, resolve_device
 from ..config.core import FilterConfig
 from ..dataio.render_object import CAR_KEYPOINTS
 from ..dataio.synthetic import SimConfig, generate, initial_state_np
@@ -190,15 +190,19 @@ def initial_filter_state(fcfg: FilterConfig, sim: SimConfig, dtype, device):
                                              device=device))
 
 
+def camera_pose(gt_R, gt_p):
+    """wTc (4, 4) of the camera on a body pose."""
+    wTc = np.eye(4)
+    wTc[:3, :3] = gt_R @ R_B2C.T
+    wTc[:3, 3] = gt_p + gt_R @ T_C_B
+    return wTc
+
+
 def detection_stream(wc: WorldConfig, objs, gt_R, gt_p, rng):
     """Every frame's detections from the ground-truth camera poses, as
     stacked numpy arrays (boxes, classes, kps, kps_mask, valid)."""
-    dets = []
-    for k in range(wc.n_frames):
-        wTc = np.eye(4)
-        wTc[:3, :3] = gt_R[k] @ R_B2C.T
-        wTc[:3, 3] = gt_p[k] + gt_R[k] @ T_C_B
-        dets.append(analytic_detections(wc, objs, wTc, rng)[:5])
+    dets = [analytic_detections(wc, objs, camera_pose(gt_R[k], gt_p[k]),
+                                rng)[:5] for k in range(wc.n_frames)]
     return tuple(np.stack(x) for x in zip(*dets))
 
 
@@ -226,6 +230,7 @@ def run_object_mapping(wc: WorldConfig, use_object_update: bool = True,
     figures, the ATE, the map and (collect_diag) each update's
     diagnostics."""
     device = resolve_device(device)
+    no_tf32()
     rng = np.random.default_rng(wc.seed + 1)
     objs = make_world(wc)
     sim = world_sim(wc)

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import no_tf32, resolve_device
 from ..filter.pipeline import FrameInput, build_chi2_table
 from ..filter.state import put, take
 from ..tree import Tree, tree_where
@@ -119,6 +119,7 @@ def make_objects_replay(ocfg: ObjectVioConfig, max_obs: int,
     and their detections in order. ``replay.init_carry(vio_state)`` gives
     the starting carry. outs: {"p" (T, 3), "R" (T, 3, 3), "n_map" (T,)}."""
     device = resolve_device(device)
+    no_tf32()
     fcfg = ocfg.filter
     mc = ocfg.manager
     chi2 = build_chi2_table(fcfg, dtype, device)

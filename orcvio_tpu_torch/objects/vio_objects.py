@@ -24,7 +24,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import no_tf32, resolve_device
 from ..config.core import FilterConfig
 from ..filter.augment import cam_poses, current_clone_slot
 from ..filter.pipeline import FrameInput, build_chi2_table
@@ -84,6 +84,7 @@ class ObjectVio:
         self.cfg = cfg
         self.dtype = dtype
         self.device = device = resolve_device(device)
+        no_tf32()
         self.vio = VioState.create(cfg.filter, max_obs, dtype, device)
         self.sort = SortState.create(cfg.sort, dtype, device)
         self.table = ObjectTable.create(cfg.manager, dtype, device)
@@ -137,6 +138,32 @@ class ObjectVio:
             out["ekf_update_applied"] = True
         return out
 
+    def step_image(self, frame: FrameInput, img, det_boxes_px, det_classes,
+                   det_valid, detector):
+        """One camera frame from a RAW image and pixel-space 2D detections:
+        the StarMap detector (``objects/detector.py``, which holds the
+        camera's intrinsics) on each bbox crop, the reference's darknet ->
+        StarMap -> ObjectInitNode chain, then ``step``. Boxes too small for
+        keypoints are dropped; truncated ones at the border are kept."""
+        b = np.asarray(det_boxes_px, np.float64)
+        big_enough = (b[:, 2] - b[:, 0] > 16) & (b[:, 3] - b[:, 1] > 9)
+        det_valid = np.asarray(det_valid) & big_enough
+        det_kps, det_kps_mask = detector(img, det_boxes_px, det_valid)
+        fx, fy, cx, cy = detector.K_cam
+        boxes_norm = np.stack([(b[:, 0] - cx) / fx, (b[:, 1] - cy) / fy,
+                               (b[:, 2] - cx) / fx, (b[:, 3] - cy) / fy],
+                              axis=1)
+        return self.step(frame, boxes_norm, det_classes, det_kps,
+                         det_kps_mask, det_valid)
+
+    def _finalize(self, zs, zs_mask, zb, zb_mask, ft, fv, poses):
+        """``manager.finalize_object`` on one table row's observations (a
+        method, so that a caller can wrap it to log the finalizations)."""
+        cfg = self.cfg
+        return finalize_object(cfg.filter, cfg.lm, zs, zs_mask, zb, zb_mask,
+                               ft, fv, poses, self.kps_mean, self.shape_mean,
+                               use_ransac=cfg.use_ransac)
+
     def step(self, frame: FrameInput, det_boxes, det_classes, det_kps,
              det_kps_mask, det_valid):
         """One camera frame with its object detections: det_boxes (M, 4)
@@ -167,10 +194,9 @@ class ObjectVio:
         arange = torch.arange(mc.window, device=self.device)
         tb = self.table
         for r in torch.nonzero(fin_mask).flatten().tolist():
-            fin, exp, wTc_obj, _ = finalize_object(
-                fcfg, cfg.lm, tb.zs[r], tb.zs_mask[r], tb.zb[r],
-                tb.zb_mask[r], tb.t[r], arange < tb.n[r], self.poses,
-                self.kps_mean, self.shape_mean, use_ransac=cfg.use_ransac)
+            fin, exp, wTc_obj, _ = self._finalize(
+                tb.zs[r], tb.zs_mask[r], tb.zb[r], tb.zb_mask[r], tb.t[r],
+                arange < tb.n[r], self.poses)
             if not bool(fin.ok):
                 continue
             oid = int(tb.oid[r])

@@ -38,6 +38,9 @@ instantiations); the level route (``lk_iterate_src``) bit-identical to the
 window route; a NaN row where the search bounds exceed the tile or the
 window lies outside its source; exactly `iters` steps, a NaN step
 included. K5 (``csrc/extract64.cu``): bit-exact, windows and offsets.
+
+The StarMap network (no kernel of ours: cuDNN convolutions, as the JAX
+package's are XLA's) in float32 on the card against its float64 CPU run.
 """
 import numpy as np
 import pytest
@@ -565,3 +568,42 @@ def test_window_gather_batched_rows_equal_single_launches(card, shared):
                                          c0[b], b0[b], 6, 2)
                         for b in range(3)])
     assert torch.equal(out, want)
+
+
+def test_starmap_network_on_the_card_matches_float64_cpu(card):
+    """StarMap at the shipped weights in float32 on the card (cuDNN, TF32
+    off by load_pretrained) against the same network in float64 on the
+    CPU, on 8 seeded crops of rendered cars: heat within 1e-4, the same
+    found masks, and the peaks within 0.05 heatmap px wherever no tie lies
+    within 1e-5."""
+    from orcvio_tpu_torch.dataio.render_object import (CAR_KEYPOINTS,
+                                                       random_view,
+                                                       render_car)
+    from orcvio_tpu_torch.models.starmap import (detect_keypoints,
+                                                 load_pretrained)
+
+    torch.backends.cudnn.allow_tf32 = True
+    net, meta = load_pretrained(device=card)
+    assert not torch.backends.cudnn.allow_tf32
+    ref, _ = load_pretrained(device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(0)
+    S = meta["input_size"]
+    crops = np.stack([render_car(*random_view(rng, S), S, rng=rng).image
+                      for _ in range(8)])
+    x = torch.as_tensor(crops)[:, None].expand(8, 3, S, S)
+    canon = torch.as_tensor(CAR_KEYPOINTS)
+    got = detect_keypoints(net, x.to(card, torch.float32),
+                           canon.to(card, torch.float32))
+    want = detect_keypoints(ref, x.double(), canon.double())
+    with torch.no_grad():
+        heat = torch.sigmoid(net(x.to(card, torch.float32))[-1][:, 0])
+        heat_ref = torch.sigmoid(ref(x.double())[-1][:, 0])
+    assert float((heat.double().cpu() - heat_ref).abs().max()) < 1e-4
+    assert torch.equal(got["found"].cpu(), want["found"])
+    assert torch.equal(got["peaks_valid"].cpu(), want["peaks_valid"])
+    # a slot whose score lies within 1e-5 of another's may change order
+    s = want["peaks_score"]
+    gap = (s[:, :, None] - s[:, None, :]).abs() + torch.eye(s.shape[1]) * 9
+    clear = want["peaks_valid"] & (gap.amin(-1) > 1e-5)
+    err = (got["peaks_xy"].double().cpu() - want["peaks_xy"]).norm(dim=-1)
+    assert clear.sum() > 8 and float(err[clear].max()) < 0.05

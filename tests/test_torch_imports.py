@@ -6,7 +6,9 @@
 * Importing the whole port leaves jax out of sys.modules.
 * Entry points without device= run on CUDA, and raise where there is none
   (the batched replay, parallel/'s mesh and the object layer's
-  orchestrator, staged replay and config-A run too).
+  orchestrator, staged replay and config-A run too, and the image path's
+  detector, network loader, config-B run and StarMap bench).
+* Each object entry point turns cuDNN's TF32 off before its first op.
 * Every filter flag runs: the IMU intrinsics and Schmidt flags build a
   filter state, a frame and a replay on the CPU.
 * Kernel wrappers given CPU tensors take the plain versions: their launch
@@ -79,7 +81,10 @@ def test_port_import_leaves_jax_unloaded():
                 "vio_objects", "staged", "persistence"):
         assert f"orcvio_tpu_torch.objects.{mod}" in names
     for mod in ("eval.objects", "eval.object_map_sim", "config.objects_yaml",
-                "dataio.render_object"):
+                "dataio.render_object", "models.starmap",
+                "models.flax_msgpack", "objects.detector",
+                "eval.object_map_cnn", "dataio.kitti", "eval.kitti_objects",
+                "scripts.starmap_bench"):
         assert f"orcvio_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
@@ -194,6 +199,74 @@ def test_entry_points_need_a_device(tmp_path):
         stage_sequence(np.zeros((1, 64, 96), np.uint8), [0.0],
                        np.zeros((1, 2)), np.zeros((1, 2, 3)),
                        np.zeros((1, 2, 3)), np.ones((1, 2), bool))
+
+
+def test_image_path_entry_points_need_a_device():
+    from orcvio_tpu_torch.dataio.render_object import CAR_KEYPOINTS
+    from orcvio_tpu_torch.eval.object_map_cnn import run_cnn_object_mapping
+    from orcvio_tpu_torch.models.starmap import load_pretrained
+    from orcvio_tpu_torch.objects.detector import StarMapKeypointDetector
+    from orcvio_tpu_torch.scripts import starmap_bench
+
+    K = (220.0, 220.0, 120.0, 120.0)
+    if torch.cuda.is_available():
+        assert next(load_pretrained()[0].parameters()).is_cuda
+        assert StarMapKeypointDetector(CAR_KEYPOINTS, K).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StarMapKeypointDetector(CAR_KEYPOINTS, K)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_pretrained()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_cnn_object_mapping(quick=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        starmap_bench.run(frames=1)
+
+
+class _Stop(Exception):
+    pass
+
+
+def _stop(*a, **kw):
+    raise _Stop
+
+
+@pytest.mark.parametrize("entry", [
+    "ObjectVio", "make_objects_replay", "run_object_mapping",
+    "StarMapKeypointDetector", "run_cnn_object_mapping"])
+def test_object_entry_points_turn_tf32_off(entry, monkeypatch):
+    """cuDNN runs float32 convolutions in TF32 by default (ROADMAP section
+    3 item 4): each object entry point turns it off before its first op
+    (the config runs are stopped right after their set-up)."""
+    from orcvio_tpu_torch.dataio.render_object import CAR_KEYPOINTS
+    from orcvio_tpu_torch.eval import object_map_cnn, object_map_sim
+    from orcvio_tpu_torch.objects.detector import StarMapKeypointDetector
+    from orcvio_tpu_torch.objects.staged import make_objects_replay
+    from orcvio_tpu_torch.objects.vio_objects import ObjectVio
+
+    ocfg = object_map_sim.object_vio_config(
+        object_map_sim.WorldConfig(n_frames=2))
+    monkeypatch.setattr(object_map_sim, "make_world", _stop)
+    monkeypatch.setattr(object_map_cnn, "make_world", _stop)
+    calls = {
+        "ObjectVio": lambda: ObjectVio(ocfg, 8, device="cpu"),
+        "make_objects_replay": lambda: make_objects_replay(ocfg, 8,
+                                                           device="cpu"),
+        "run_object_mapping": lambda: object_map_sim.run_object_mapping(
+            object_map_sim.WorldConfig(n_frames=2), device="cpu"),
+        "StarMapKeypointDetector": lambda: StarMapKeypointDetector(
+            CAR_KEYPOINTS, (220.0, 220.0, 120.0, 120.0), device="cpu",
+            geometric_labels=False),
+        "run_cnn_object_mapping": lambda: object_map_cnn.
+        run_cnn_object_mapping(quick=True, device="cpu")}
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    try:
+        calls[entry]()
+    except _Stop:
+        pass
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 @pytest.mark.parametrize("flag", [

@@ -13,10 +13,11 @@ trajectory within 1e-6 m.
 
 Run as a script, ``python tests/test_torch_objects_e2e.py
 --jax-object-map``, it prints the JAX package's figures that
-chip_smoke.py's phase 12 holds the port to (CPU, some 4 min): config A
-(``run_object_mapping(WorldConfig())``, 300 frames, float64) with and
-without the object update, and bench.py's staged replay configuration
-(float32, 300 frames, map capacity 32).
+chip_smoke.py's phase 12 holds the port to (CPU, some 3 min): config A
+at ``scripts/object_map_eval.py --quick``'s size
+(``run_object_mapping(WorldConfig(n_objects=6, n_frames=150))``,
+float64) with and without the object update, and bench.py's staged
+replay configuration (float32, 300 frames, 12 cars, map capacity 32).
 """
 import json
 import subprocess
@@ -140,14 +141,21 @@ def test_update_invariants(runs):
 # --jax-object-map: the JAX package's figures for chip_smoke.py's phase 12
 # ---------------------------------------------------------------------------
 
+# phase 12's config A world: scripts/object_map_eval.py --quick's (6 cars
+# over 150 frames); the 300-frame world stays in
+# tests/test_torch_objects_config_a.py
+CHIP_WORLD = dict(n_objects=6, n_frames=150)
+
+
 def _config_a(use_object_update):
     from orcvio_tpu.eval.object_map_sim import WorldConfig, run_object_mapping
 
     t0 = time.perf_counter()
-    res = run_object_mapping(WorldConfig(), use_object_update=use_object_update,
+    res = run_object_mapping(WorldConfig(**CHIP_WORLD),
+                             use_object_update=use_object_update,
                              collect_diag=True)
     secs = time.perf_counter() - t0
-    n_frames = WorldConfig().n_frames
+    n_frames = CHIP_WORLD["n_frames"]
     return {"mean_iou": res["mean_iou"], "n_matched": res["n_matched"],
             "n_est": res["n_est"], "n_gt": res["n_gt"], "ate_m": res["ate_m"],
             "updates_tried": len(res["diag"]),
