@@ -22,7 +22,7 @@ Phases:
     positions cut from the main path's last frames; K2 from both sources
     (the windows K1 cuts and the levels read in place), at the 3 levels
     and in the level-0 backward pass, the two bit-identical;
- 4. times with CUDA events: tracker ms/frame (5 scans), each kernel's
+ 4. times with CUDA events: tracker ms/frame (3 scans), each kernel's
     time beside its bound, its plain version's and (K1) an
     advanced-indexing gather's; K2 on the main path's route and on the
     windows. A bound counts the bytes
@@ -36,8 +36,8 @@ Phases:
     (300 frames, 60 of them static): init,
     finite poses, the ATE against the JAX package's on the same stream,
     the launch count of every kernel; ms/frame over 1 replay of 100
-    flight frames after init; 20 of them under sync debug mode; 10 of them
-    profiled;
+    frames after init (38 at standstill, 62 of flight); 20 of them under
+    sync debug mode; 10 of them profiled;
  6. K4 against its plain version on the (P, K, H) the replay gave it (the
     stacked, last-chance and ZUPT updates) and on random (172, 444)
     inputs in float32 and float64, within the rounding bound and exactly
@@ -64,10 +64,11 @@ Phases:
     temporary directory; the native loader built and held equal to the
     Python reader (times, IMU slabs, decoded images), or the Python reader
     alone where it does not build (its decoder timed on 30 frames); then
-    the port's CLI, run_vio.main, in-process on the bytes
-    at full width, once --staged and once as the host loop: init on frame
-    20, finite poses, the TUM file read back, ATE (se3 and posyaw) against
-    the JAX package's on its own writer's bytes, K1, K2 and K4 launches
+    the port's CLI, run_vio.main, in-process on the bytes' first 100
+    frames at full width, once --staged and once as the host loop: init
+    on frame 20, finite poses, the TUM file read back, ATE (se3 and
+    posyaw) against the JAX package's on its own writer's bytes (at most
+    twice it, ate_limit), K1, K2 and K4 launches
     per frame as in phase 5, the host loop's failed dynamic attempts at
     frames 10 and 15 and no host synchronisation in 20 of its frames after
     init; and a 60-frame stream with no static start, on which the host
@@ -111,13 +112,13 @@ Phases:
     tracker's ids and positions, its generator's state, init frame,
     update counts and ZUPT flags identical, p within 1e-6 m, every two
     rows apart; (c) the bench's batched configuration, float32 at B = 4
-    identical rows over the first 160 frames of phase 5's stream: ms per
-    batched frame and aggregate frames/s over 100 flight frames, K1, K2
+    identical rows over the first 100 frames of phase 5's stream: ms per
+    batched frame and aggregate frames/s over 40 frames after init, K1, K2
     and K4 launching as often per batched frame as per single frame (1,
     4, 3), the rows bit-identical, row 0's ATE against JAX's over as many
     frames, no host synchronisation in 20 batched frames, 4 profiled;
     (d) the filter-only aggregate of bench.py:232-266 (16
-    synthetic sequences of 100 frames through parallel/replay.py's
+    synthetic sequences of 50 frames through parallel/replay.py's
     sharded_replay_fn on a one-card mesh): frames/s and K4 launches a
     batched frame; and no op run without a batching rule throughout;
 12. the object path (OrcVIO's object layer: SORT, keypoint ingest,
@@ -140,7 +141,7 @@ Phases:
     exactly symmetric, and its times beside its bound and addmm's. Config
     A's pair runs at scripts/object_map_eval.py --quick's size (6 cars over
     150 frames, OBJ_A_WORLD), its JAX figures recomputed there; the staged
-    replay at the 12-car world's 300 frames;
+    replay on the 12-car world cut to 150 frames (OBJ_FRAMES);
 13. the image path of the objects (config B of OBJECTS.md: composite
     renders of 3 cars, 240x240, their pixel boxes, the StarMap keypoint
     network at the shipped widths in float32, SORT, keypoint ingest,
@@ -155,7 +156,25 @@ Phases:
     1260), ms a frame on the host clock split into render, detector and
     step; K4 against its plain version on config B's inputs; (c) the
     port's scripts/starmap_bench.py (M = 4 crops a frame as one batch,
-    100 frames): ms a frame and crops/s from CUDA events, kernels a crop.
+    100 frames): ms a frame and crops/s from CUDA events, kernels a crop;
+14. the scale-out layer and the tools: (a) one trajectory (the world of
+    __graft_entry__.py:_dryrun_real_shapes: sw 20, 150 features, 300
+    synthetic frames, float64) replayed serially and as 4 time blocks at
+    once (parallel/temporal.py:seq_parallel_replay, n_iters 2, the blocks
+    a vmapped batch): both finite, per-frame update counts and end
+    positions against the JAX package's float64 CPU figures, K4 launched
+    as often a batched block frame as a serial frame, no host read inside
+    the blocks' frames, the wall clock of both and the speedup; (b) at
+    n_iters = 4 within 1e-8 of the serial replay on tests/test_temporal.py's
+    world, and at n_iters 2 within that test's accuracy band; (c) the
+    feature-parallel update over 8 shards at capacity 21 against one
+    information_update; (d) eval/scaling.py's harness on one card, no
+    collective in its timed loop; (e) CLAHE and the pwl equalization over
+    20 frames of phase 2's stream against the CPU's, then the tracker with
+    CLAHE and on the pwl frames (K1 and K2 as in phase 2), 4 frames' tracks
+    against the CPU's plain path; (f) a card filter state through a
+    checkpoint, bit for bit; (g) the batch evaluator's vmapped run against
+    its runs one by one.
 
 Then the seconds each phase took.
 
@@ -202,27 +221,39 @@ except ImportError as e:  # chip_smoke.py without the checkout around it
 # timestamps start at 0.05 s, so float32 holds them: no rebase as bench.py
 # does for EuRoC epochs.
 E2E_FRAMES = 300
-E2E_WINDOW = 100  # flight frames after init per timed replay
+E2E_WINDOW = 100  # frames per timed replay from the second after init:
+# 22-121 on the bench stream, 38 at standstill (ZUPT) and 62 of flight
 # timed replays of the window and scans of the known-flow stream: few, so
 # that all 13 phases fit the script's time on the slower hosts (PERF.md
 # section 5)
 E2E_REPLAYS = 1
-TRACKER_SCANS = 5
+TRACKER_SCANS = 3
 # The JAX package's ATE on this stream: its make_e2e_replay in float32 on a
 # CPU (on the stream the port's make_stream makes on the CPU), posyaw
-# alignment over all frames, and over the first 160 (phase 11's bench
+# alignment over all frames, and over the first 100 (phase 11's bench
 # pass), from `python tests/test_torch_e2e.py --jax-bench-ate --prefix
-# 160`.
+# 100`.
 JAX_E2E = {"ate_m": 0.051326269113335064, "init_frame": 20,
            "filter_frames": 279, "n_upd_total": 1274, "zupt_frames": 43,
-           "ate_m_160": 0.016229971057872168}
-# The port passes where its ATE is at most this much above the JAX figure,
-# about twice it: the RANSAC draws differ between the packages, so the two
-# runs track other features and differ as two seeds of one filter do.
+           "ate_m_100": 0.005486858895046913}
+# The port passes where its ATE is at most ATE_MARGIN_M above the JAX
+# figure and at most twice it (ate_limit): the RANSAC draws differ between
+# the packages, so the two runs track other features and differ as two
+# seeds of one filter do. The margin binds on the full streams (phase 5's
+# 0.0513 m), twice the figure on the runs cut short (phases 9 and 11's 100
+# frames, whose JAX figures are 0.0055-0.0079 m).
 ATE_MARGIN_M = 0.05
+
+
+def ate_limit(jax_ate):
+    return jax_ate + min(ATE_MARGIN_M, jax_ate)
+
 # The EuRoC path (phase 9): the bench sequence as bytes, and a stream with
 # no static start on which the JAX package initializes dynamically.
 EUROC_FRAMES = 300
+# the CLI's runs on the bytes take their first EUROC_RUN_FRAMES (--max-frames:
+# init on frame 20, the flight from frame 60), for the script's time
+EUROC_RUN_FRAMES = 100
 DECODE_FRAMES = 30  # frames the decoder is timed on where the native
 # loader does not build (the CLI runs decode them all again)
 DYN_FRAMES = 60
@@ -248,13 +279,13 @@ DYN_SIM = {**BENCH_SIM, "static_time": 0.0, "omega": 1.0}
 # matrix): JAX's run on the dynamic stream drew a poor init (26 deg off
 # gravity, a speed 2.6 times the truth, then drift), so its ATE bounds the
 # port's loosely; the draws check (DRAWS) holds the initializer's accuracy.
-JAX_EUROC = {
-    "staged": {"init_frame": 20, "n_upd_total": 1259,
-               "ate_m": {"se3": 0.03311446621900524,
-                         "posyaw": 0.04861979959040959}},
-    "host_loop": {"init_frame": 20, "n_upd_total": 1277,
-                  "ate_m": {"se3": 0.042784247036444525,
-                            "posyaw": 0.053733349182383074},
+JAX_EUROC = {  # the bench runs over their first EUROC_RUN_FRAMES frames
+    "staged": {"init_frame": 20, "n_upd_total": 126,
+               "ate_m": {"se3": 0.007390862277727856,
+                         "posyaw": 0.007889604878416327}},
+    "host_loop": {"init_frame": 20, "n_upd_total": 129,
+                  "ate_m": {"se3": 0.006597274729445154,
+                            "posyaw": 0.0071402883737634775},
                   "dynamic_attempts": [[10, False], [15, False],
                                        [20, False]]},
     "dynamic": {"init_frame": 15, "n_upd_total": 234,
@@ -399,14 +430,15 @@ ROW_TOL_M = 1e-6
 ROW_STARTS = (0, 2, 4, 6)
 ROW_XY_TOL_PX = 1e-3
 BATCH_START = 25
-# The bench pass (c): init, the timed window, 20 frames under sync debug
-# mode and BATCH_PROFILE_FRAMES profiled (after as many more) fit in its
-# BATCH_FRAMES frames; its ATE against JAX's over as many
-# (JAX_E2E["ate_m_160"]).
-BATCH_FRAMES = 160
+# The bench pass (c): init, the timed window of BATCH_WINDOW frames, 20
+# frames under sync debug mode and BATCH_PROFILE_FRAMES profiled (after as
+# many more) fit in its BATCH_FRAMES frames; its ATE against JAX's over as
+# many (JAX_E2E["ate_m_100"]).
+BATCH_WINDOW = 40
+BATCH_FRAMES = 100
 BATCH_PROFILE_FRAMES = 4
 FILTER_AGG_B = 16
-FILTER_AGG_FRAMES = 100  # bench.py's 200, halved for the script's time
+FILTER_AGG_FRAMES = 50  # bench.py's 200, a quarter for the script's time
 K3_FRAMES = 3   # frame pairs of the known-flow stream for the K3 path
 RACE_REPS = 5   # timed passes of the race, as scripts/race_extract.py
 # The object path (phase 12): config A of OBJECTS.md, the world of
@@ -417,7 +449,7 @@ RACE_REPS = 5   # timed passes of the race, as scripts/race_extract.py
 # CPU come from `python tests/test_torch_objects_e2e.py --jax-object-map`
 # (float64 config A with and without the object update; the staged replay
 # in float32 without x64), not from OBJECTS.md's older tree.
-OBJ_FRAMES = 300
+OBJ_FRAMES = 150
 # config A's pair of runs at scripts/object_map_eval.py --quick's size (6
 # cars over 150 frames), so that phase 13 fits the script's time; the
 # 300-frame, 12-car world stays in tests/test_torch_objects_config_a.py
@@ -461,10 +493,76 @@ JAX_OBJECTS = {
         "no_update": {"mean_iou": 0.6098974007019675, "n_matched": 4,
                       "n_est": 4, "n_gt": 6,
                       "ate_m": 0.11904504550032664}},
-    "staged_f32": {"n_map": 12, "ate_m": 0.04689790681004524},
+    "staged_f32": {"n_map": 8, "ate_m": 0.10150757431983948},
     "config_b": {"mean_iou": 0.3812230405936208, "n_matched": 3, "n_est": 3,
                  "n_gt": 3, "finalizations": 4, "finalized_ok": 3,
                  "updates_tried": 3, "updates_applied": 1}}
+
+
+# Phase 14, the scale-out layer and the tools. (a) runs the world of
+# __graft_entry__.py:_dryrun_real_shapes (sw 20, 150 features, IMU slab 10,
+# 300 synthetic frames, 400 landmarks, max_obs 60, seed 0) in float64,
+# serially and as K = 4 time blocks (seq_parallel_replay, n_iters 2); (b)
+# tests/test_temporal.py's world at n_iters = K.
+SP_CFG = dict(sw_size=20, max_features=150, max_track_len=6, imu_slab=10,
+              observation_noise=0.004, tri_translation_threshold=-1.0)
+SP_SIM = dict(n_frames=300, n_landmarks=400, max_obs=60, imu_slab=10, seed=0)
+SP_BLOCKS, SP_ITERS = 4, 2
+SP_SMALL_CFG = dict(SP_CFG, sw_size=10, max_features=80, imu_slab=12)
+SP_SMALL_SIM = dict(n_frames=120, n_landmarks=300, max_obs=40, imu_slab=12,
+                    seed=0)
+SP_END_TOL_M = 1e-6
+SP_EXACT_TOL = 1e-8
+FP_CAPACITY, FP_SHARDS, FP_TOL = 21, 8, 1e-8
+SCALING_FRAMES, SCALING_REPS = 10, 2
+EQ_FRAMES = 20  # tracker frames of phase 2's stream under clahe and pwl
+EQ_IMG_TOL = 1e-3  # the card's equalized images against the CPU's, gray
+BATCH_EVAL_SEEDS = (3, 4)
+BATCH_EVAL_CFG = dict(sw_size=8, max_features=60, max_track_len=4,
+                      imu_slab=12, observation_noise=0.004,
+                      tri_translation_threshold=-1.0)
+BATCH_EVAL_SIM = dict(n_frames=20, n_landmarks=200, max_obs=40, imu_slab=12,
+                      uv_noise=0.002)
+# The JAX package's float64 CPU replays of SP_SIM on the port's frames and
+# initial state (python tests/test_torch_temporal.py --jax-temporal-figures):
+# the end position, the RMSE to the ground truth and the per-frame update
+# counts of the serial run and of K = 4 blocks at n_iters 2 (corrected).
+JAX_TEMPORAL = {
+    "serial": {
+        "end_p": [1.1329030945743768, 5.913833692896598, 0.03899543790567842],
+        "rmse_m": 0.13684311875538202,
+        "n_update": [int(x) for x in (
+            "0 0 0 2 2 30 2 4 1 7 1 32 4 6 5 4 4 32 6 6 0 0 0 0 7 6 2 1 1 2 "
+            "32 0 0 0 1 0 16 1 0 2 0 0 32 0 0 1 1 2 18 3 2 1 0 1 31 1 0 0 0 "
+            "1 27 3 0 0 1 1 23 1 3 0 0 0 31 0 0 3 0 0 22 3 1 2 0 1 29 0 0 2 "
+            "1 1 25 0 2 0 1 1 29 2 0 1 0 1 26 2 0 0 3 1 25 0 1 2 2 2 22 4 3 "
+            "0 0 1 27 4 3 1 2 0 22 3 1 1 0 0 32 0 0 0 0 0 26 0 0 1 0 1 31 0 "
+            "0 0 0 0 28 1 1 2 1 0 26 2 0 1 3 0 27 1 2 2 0 2 20 6 1 0 1 2 26 "
+            "3 0 0 1 1 25 3 2 1 2 0 24 0 0 0 1 0 32 1 0 0 1 1 24 3 2 0 0 0 "
+            "29 2 0 1 1 1 26 2 0 1 1 2 24 3 2 0 1 3 23 4 0 1 1 0 27 1 0 0 1 "
+            "1 28 2 2 1 0 2 23 0 0 0 1 1 32 1 0 1 0 1 22 0 0 0 4 2 30 1 1 0 "
+            "0 1 20 4 1 2 1 1 29 1 2 3 1 1 20 3 2 0 2 1 28 1 0 2 0 0 23 5 2 "
+            "1 0 1 29 1 1 2 0 0").split()],
+    },
+    "parallel": {
+        "end_p": [1.3371321733374515, 5.595476191132466, 0.005801443804442167],
+        "rmse_m": 0.20654945736836694,
+        "mean_gap_m": 0.15425387076122357,
+        "n_update": [int(x) for x in (
+            "0 0 0 2 2 30 2 4 1 7 1 32 4 6 5 4 4 32 6 6 0 0 0 0 7 6 2 1 1 2 "
+            "32 0 0 0 1 0 16 1 0 2 0 0 32 0 0 1 1 2 18 3 2 1 0 1 31 1 0 0 0 "
+            "1 27 3 0 0 1 1 23 1 3 0 0 0 31 0 0 3 0 0 22 3 1 2 0 1 29 0 0 2 "
+            "1 1 25 0 2 0 1 1 29 2 0 1 0 1 26 2 0 0 3 1 25 0 1 2 2 2 22 4 3 "
+            "0 0 1 27 4 3 1 2 0 22 3 1 1 0 0 32 0 0 0 0 0 26 0 0 1 0 1 31 0 "
+            "0 0 0 0 1 1 1 28 1 0 2 1 0 25 6 1 2 2 3 20 1 1 1 1 2 29 3 2 2 "
+            "1 0 20 1 0 1 1 2 32 3 0 0 0 0 18 2 0 1 0 1 32 1 0 0 0 1 20 1 0 "
+            "1 1 2 32 1 0 1 1 1 21 1 1 0 3 2 28 2 0 1 1 1 1 1 0 27 1 0 0 1 "
+            "1 28 2 2 1 0 2 23 0 0 0 1 1 32 1 0 1 0 1 22 0 0 0 4 2 30 1 1 0 "
+            "0 1 20 4 1 2 1 1 29 1 2 3 1 1 20 3 2 0 2 1 28 1 0 2 0 0 23 5 2 "
+            "1 0 1 29 1 1 2 0 0").split()],
+    },
+}
+EQ_CPU_FRAMES = 4  # of them through the CPU's plain path as well
 
 
 def check(ok: bool, what: str) -> None:
@@ -701,12 +799,46 @@ def ptxas_usage(log):
     return out
 
 
-def profile_frames(run, n, warm=True, cpu=True):
+def device_rows(prof, averages=False):
+    """{name: [device ms, count]} over the kernels, copies and sets that
+    prof traced. Read off the profiler's raw events; key_averages() gives
+    the same rows (averages=True reads them there) but first builds a
+    Python tree of every host and device event, which takes longer than
+    the traced frames themselves (some 30 s for 3.5e5 events)."""
+    import torch
+    from torch.autograd.profiler_util import _rewrite_name
+
+    if averages:
+        return {e.key: [e.device_time_total / 1e3, e.count]
+                for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and e.device_time_total > 0}
+    cuda, acc = torch.autograd.DeviceType.CUDA, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != cuda
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        row = acc.setdefault(e.name(), [0.0, 0])
+        # key_averages() counts an event that ends on another thread, but
+        # gives it no time
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            row[0] += e.duration_ns() / 1e6
+        row[1] += 1
+    rows = {}
+    for name, (ms, c) in acc.items():
+        key = _rewrite_name(name, with_wildcard=True)
+        row = rows.setdefault(key, [0.0, 0])
+        row[0] += ms
+        row[1] += c
+    return {k: v for k, v in rows.items() if v[0] > 0}
+
+
+def profile_frames(run, n, warm=True, cpu=True, cross_check=False):
     """Device busy share and kernel time by name over run(), n frames;
     run() once first unless warm is False (its code already ran). With
     cpu False only the device's activity is traced: the host's ops are
-    not recorded, which keeps their cost out of the wall time and the
-    trace's reading short where a frame makes some 10^4 launches."""
+    not recorded, which keeps their cost out of the wall time. With
+    cross_check the rows read off the raw events are held against
+    key_averages()'s (names and counts equal, times within 1e-6 ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -719,17 +851,30 @@ def profile_frames(run, n, warm=True, cpu=True):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    t0 = time.perf_counter()
+    by_name = device_rows(prof)
+    read_s = time.perf_counter() - t0
+    rows = sorted(((k, ms, c) for k, (ms, c) in by_name.items()),
+                  key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    return {"frames": n, "wall_ms_per_frame": wall_ms / n,
-            "device_ms_per_frame": busy_ms / n,
-            "device_busy_share": busy_ms / wall_ms,
-            "kernels_per_frame": sum(r[2] for r in rows) / n,
-            "top": [{"name": k[:60], "ms_per_frame": ms / n,
-                     "calls_per_frame": c / n} for k, ms, c in rows[:10]]}
+    out = {"frames": n, "wall_ms_per_frame": wall_ms / n,
+           "device_ms_per_frame": busy_ms / n,
+           "device_busy_share": busy_ms / wall_ms,
+           "kernels_per_frame": sum(r[2] for r in rows) / n,
+           "read_s": read_s,
+           "top": [{"name": k[:60], "ms_per_frame": ms / n,
+                    "calls_per_frame": c / n} for k, ms, c in rows[:10]]}
+    if cross_check:
+        t0 = time.perf_counter()
+        avg = device_rows(prof, averages=True)
+        out["key_averages_s"] = time.perf_counter() - t0
+        agree = (avg.keys() == by_name.keys() and all(
+            avg[k][1] == by_name[k][1]
+            and abs(avg[k][0] - by_name[k][0]) < 1e-6 for k in avg))
+        check(agree, f"profile: {len(by_name)} kernel rows off the raw events "
+                     f"equal key_averages()'s ({out['key_averages_s']:.2f} s "
+                     f"against {read_s:.2f} s to read)")
+    return out
 
 
 def k4_tolerance(P, K, HP, out):
@@ -922,11 +1067,11 @@ def check_euroc_run(name, summary, tum_path, jax_fig, launches, frames):
     ate_m = {}
     for al in ("se3", "posyaw"):
         got = summary["ate"].get(al, {}).get("rmse_trans", float("nan"))
-        limit = jax_fig["ate_m"][al] + ATE_MARGIN_M
+        limit = ate_limit(jax_fig["ate_m"][al])
         ate_m[al] = got
         check(bool(np.isfinite(got)) and got <= limit,
-              f"{name}: ATE {al} {got:.4f} m <= JAX {jax_fig['ate_m'][al]:.4f}"
-              f" + {ATE_MARGIN_M} = {limit:.4f} m")
+              f"{name}: ATE {al} {got:.4f} m <= {limit:.4f} m, JAX's "
+              f"{jax_fig['ate_m'][al]:.4f} + min({ATE_MARGIN_M}, itself)")
     check(launches["window_gather"] == frames
           and launches["lk_level"] == 4 * frames
           and launches["cov_update"] == 3 * n_filter,
@@ -1040,7 +1185,7 @@ def euroc_phase(dev, bench, wc):
 
         # --- the CLI, staged and as the host loop ---
         base = ["--euroc", seq_dir, "--config", cfg_path, "--max-frames",
-                str(EUROC_FRAMES), "--imu-slab", str(slab), "--device",
+                str(EUROC_RUN_FRAMES), "--imu-slab", str(slab), "--device",
                 str(dev)]
         for name, extra in (("staged", ["--staged"]), ("host_loop", [])):
             tum = os.path.join(tmp, f"{name}.txt")
@@ -1060,7 +1205,7 @@ def euroc_phase(dev, bench, wc):
             launches = launch_counts()
             report["reader"] = summary["reader"]
             line = check_euroc_run(name, summary, tum, JAX_EUROC[name],
-                                   launches, EUROC_FRAMES)
+                                   launches, EUROC_RUN_FRAMES)
             line["main_s"] = wall
             if name == "host_loop":
                 att = line["dynamic_attempts"]
@@ -1085,9 +1230,10 @@ def euroc_phase(dev, bench, wc):
         report["dynamic"] = dynamic_run(dev, wc, tmp, slab)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    report["config"] = ("bench sequence 752x480, 300 frames (60 static), "
-                        "3 levels, 200 features; filter from the bytes' "
-                        "config.yaml (D=172), f32")
+    report["config"] = (f"bench sequence 752x480, {EUROC_FRAMES} frames "
+                        f"written (60 static), the first {EUROC_RUN_FRAMES} "
+                        "run; 3 levels, 200 features; filter from the "
+                        "bytes' config.yaml (D=172), f32")
     return report
 
 
@@ -1148,11 +1294,11 @@ def dynamic_run(dev, wc, tmp, slab):
                       q_gt)["rmse_trans"]
     except ValueError:
         dyn_ate = float("nan")
-    limit = jfig["ate_se3_from_init_m"] + ATE_MARGIN_M
+    limit = ate_limit(jfig["ate_se3_from_init_m"])
     check(bool(np.isfinite(dyn_ate)) and dyn_ate <= limit,
-          f"dynamic stream: ATE se3 from init {dyn_ate:.4f} m <= JAX "
-          f"{jfig['ate_se3_from_init_m']:.4f} + {ATE_MARGIN_M} = "
-          f"{limit:.4f} m")
+          f"dynamic stream: ATE se3 from init {dyn_ate:.4f} m <= {limit:.4f}"
+          f" m, JAX's {jfig['ate_se3_from_init_m']:.4f} + min("
+          f"{ATE_MARGIN_M}, itself)")
     out = {"init_frame": k0, "jax_init_frame": jfig["init_frame"],
            "dynamic_attempts": res["dynamic_attempts"],
            "ate_se3_from_init_m": dyn_ate,
@@ -1784,11 +1930,11 @@ def batched_bench(dev, bench, wc, gt_q, frame_ts):
     """Phase 11 (c): the bench's batched configuration, the float32
     end-to-end replay at B = BATCH identical rows (as bench.py:219-221
     stacks them) over the first BATCH_FRAMES frames of phase 5's stream,
-    in one pass: frames up to BATCH_START, then E2E_WINDOW flight frames
+    in one pass: frames up to BATCH_START, then BATCH_WINDOW frames
     timed with CUDA events and their launches counted (1 K1, 4 K2, 3 K4 a
     batched frame, as a single stream's), then 20 under sync debug mode,
     BATCH_PROFILE_FRAMES (after as many more) profiled, and the rest; the
-    rows bit-identical; row 0's ATE over the pass within ATE_MARGIN_M of
+    rows bit-identical; row 0's ATE over the pass within ate_limit of
     JAX's over as many frames. Returns the report's entry."""
     import torch
 
@@ -1825,7 +1971,7 @@ def batched_bench(dev, bench, wc, gt_q, frame_ts):
         state, o = replay(*state, staged, frames=ks)
         parts.append(o)
 
-    window = range(BATCH_START, BATCH_START + E2E_WINDOW)
+    window = range(BATCH_START, BATCH_START + BATCH_WINDOW)
     check(window.stop + 20 + 2 * n <= TE,
           f"batched e2e: the pass's {TE} frames hold the window, the sync "
           "check and the profile")
@@ -1871,19 +2017,19 @@ def batched_bench(dev, bench, wc, gt_q, frame_ts):
     except ValueError as e:
         m = {"rmse_trans": float("nan"), "error": str(e)}
     jax_ate = JAX_E2E[f"ate_m_{TE}"]
-    ate_limit = jax_ate + ATE_MARGIN_M
+    limit = ate_limit(jax_ate)
     check(p.shape[0] == TE and finite
-          and bool(m["rmse_trans"] <= ate_limit),
+          and bool(m["rmse_trans"] <= limit),
           f"batched e2e: row 0's ATE {m['rmse_trans']:.4f} m (posyaw) over "
-          f"{p.shape[0]} frames <= JAX's over as many, {jax_ate:.4f} m, + "
-          f"{ATE_MARGIN_M}")
+          f"{p.shape[0]} frames <= {limit:.4f} m, JAX's over as many, "
+          f"{jax_ate:.4f} m, + min({ATE_MARGIN_M}, itself)")
     return {"B": B, "frames": TE, "init_frame": k0,
             "window": [window.start, window.stop],
             "ms_per_batched_frame": ms,
             "aggregate_frames_per_s": B * 1e3 / ms,
             "launches": launches, "launches_per_batched_frame": per_frame,
             "rows_bit_identical": same, "ate_m": m["rmse_trans"],
-            "jax_ate_m": jax_ate, "ate_limit_m": ate_limit,
+            "jax_ate_m": jax_ate, "ate_limit_m": limit,
             "n_upd_total_row0": int(outs["n_upd"][0].sum()),
             "profile": prof}
 
@@ -1899,34 +2045,21 @@ def batched_filter_aggregate(dev):
 
     from orcvio_tpu_torch.config.core import FilterConfig
     from orcvio_tpu_torch.dataio import synthetic as syn
-    from orcvio_tpu_torch.filter.pipeline import FrameInput, build_chi2_table
-    from orcvio_tpu_torch.filter.state import FilterState
+    from orcvio_tpu_torch.filter.pipeline import FrameInput
     from orcvio_tpu_torch.tree import tree_stack
     from orcvio_tpu_torch.parallel.replay import make_mesh, sharded_replay_fn
 
     B, T = FILTER_AGG_B, FILTER_AGG_FRAMES
-    f32 = torch.float32
     cfg = FilterConfig(sw_size=20, max_features=150, max_track_len=6,
                        imu_slab=12, observation_noise=0.004,
                        tri_translation_threshold=-1.0)
     sim = syn.SimConfig(n_frames=T, n_landmarks=400, max_obs=60,
                         imu_slab=12, seed=0)
-    R_b2c = np.asarray([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
-    t_c_b = np.asarray([0.05, 0.02, 0.0])
-    frames = syn.generate(sim, R_b2c, t_c_b, f32, device=dev).frames
-    st = FilterState.create(cfg, f32, device=dev)
-    R0, p0, v0 = (torch.as_tensor(x).to(dev, f32)
-                  for x in syn.initial_state_np(sim))
-    imu = st.imu.replace(R=R0, p=p0, v=v0)
-    st = st.replace(imu=imu, imu_fej_now=imu, imu_old=imu,
-                    R_b2c=torch.as_tensor(R_b2c).to(dev, f32),
-                    t_c_b=torch.as_tensor(t_c_b).to(dev, f32),
-                    initialized=torch.ones((), dtype=torch.bool, device=dev))
+    st, frames, chi2 = syn.initialized_run(cfg, sim, torch.float32, dev)
     states = tree_stack([st] * B)
     frames_b = FrameInput(*(x.expand(B, *x.shape) for x in frames))
     mesh = make_mesh(1)
     fn = sharded_replay_fn(cfg, mesh)
-    chi2 = build_chi2_table(cfg, f32, dev)
     torch.cuda.synchronize()
     launch_counts(reset=True)
     t0 = time.perf_counter()
@@ -2413,6 +2546,443 @@ def image_objects_phase(dev):
         "cov_update"], "max_abs_err_objects_config_b": k4_err}
 
 
+def sp_syncs(run):
+    """(run(), the host synchronisations inside the blocks' frames, those
+    elsewhere) for run() a seq_parallel_replay call, each as file:line,
+    under torch's sync debug mode: temporal.make_block_replay's replay is
+    wrapped to tell its reads from those of the starts, the stitch and
+    the covariance correction."""
+    import torch
+
+    from orcvio_tpu_torch.parallel import temporal
+
+    make = temporal.make_block_replay
+    in_blocks = []
+
+    def wrapped(*a, **kw):
+        replay = make(*a, **kw)
+
+        def inner(starts, fb):
+            n0 = len(caught)
+            out = replay(starts, fb)
+            in_blocks.extend(caught[n0:])
+            return out
+
+        return inner
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        temporal.make_block_replay = wrapped
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            temporal.make_block_replay = make
+
+    def where(ws):
+        return [f"{Path(w.filename).name}:{w.lineno}" for w in ws
+                if "called a synchronizing" in str(w.message)]
+
+    inside = {id(w) for w in in_blocks}
+    return res, where(in_blocks), where([w for w in caught
+                                         if id(w) not in inside])
+
+
+def sp_world(dev, cfg_kw, sim_kw):
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.dataio.synthetic import (SimConfig, generate,
+                                                   initialized_run)
+
+    cfg, sim = FilterConfig(**cfg_kw), SimConfig(**sim_kw)
+    st, frames, chi2 = initialized_run(cfg, sim, torch.float64, dev)
+    gt_p = generate(sim, dtype=torch.float64, device="cpu").gt_p.numpy()
+    return cfg, st, frames, chi2, gt_p
+
+
+def sp_bands(p_s, p_p, gt_p):
+    """tests/test_temporal.py:99-102's figures: both RMSEs to the ground
+    truth, the band 1.3 RMSE_serial + 0.02 m, and the parallel run's mean
+    distance to the serial one against max(RMSE_serial, 0.05 m)."""
+    rmse = [float(np.sqrt(((p - gt_p) ** 2).sum(1).mean())) for p in (p_s, p_p)]
+    gap = float(np.linalg.norm(p_p - p_s, axis=1).mean())
+    return {"rmse_serial_m": rmse[0], "rmse_parallel_m": rmse[1],
+            "rmse_band_m": 1.3 * rmse[0] + 0.02, "mean_gap_m": gap,
+            "gap_limit_m": max(rmse[0], 0.05),
+            "in_band": rmse[1] <= 1.3 * rmse[0] + 0.02
+            and gap < max(rmse[0], 0.05)}
+
+
+def sequence_parallel_full(dev):
+    """Phase 14 (a): SP_SIM in float64, serial (run_sequence) and as
+    SP_BLOCKS blocks at n_iters SP_ITERS, each timed once on the host
+    clock after a short warm-up: finite, the per-frame update counts and
+    end positions of both against the JAX package's (JAX_TEMPORAL), K4's
+    launches a batched block frame against a serial frame's, no host read
+    inside the blocks' frames, and the speedup. The band of
+    tests/test_temporal.py is recorded here (the JAX package's own run of
+    this world lies outside it) and held in (b)."""
+    import torch
+
+    from orcvio_tpu_torch.filter.pipeline import FrameInput, run_sequence
+    from orcvio_tpu_torch.parallel.temporal import seq_parallel_replay
+
+    cfg, st, frames, chi2, gt_p = sp_world(dev, SP_CFG, SP_SIM)
+    warm = FrameInput(*(x[:2 * SP_BLOCKS] for x in frames))
+    run_sequence(cfg, st, warm, chi2)
+    seq_parallel_replay(cfg, st, warm, chi2, n_blocks=SP_BLOCKS, n_iters=1)
+    torch.cuda.synchronize()
+
+    T = frames.t.shape[0]
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    end_s, outs_s = run_sequence(cfg, st, frames, chi2)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    k4_serial = launch_counts()["cov_update"]
+
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    (end_p, outs_p), inside, outside = sp_syncs(
+        lambda: seq_parallel_replay(cfg, st, frames, chi2,
+                                    n_blocks=SP_BLOCKS, n_iters=SP_ITERS))
+    torch.cuda.synchronize()
+    parallel_s = time.perf_counter() - t0
+    k4_par = launch_counts()["cov_update"]
+    block_frames = SP_ITERS * (T // SP_BLOCKS)
+
+    p_s, p_p = outs_s.p.cpu().numpy(), outs_p["p"].cpu().numpy()
+    finite = bool(np.isfinite(p_s).all() and np.isfinite(p_p).all()
+                  and torch.isfinite(end_s.P).all()
+                  and torch.isfinite(end_p.P).all())
+    check(finite, f"sequence parallel: serial and {SP_BLOCKS}-block runs of "
+                  f"{T} frames finite")
+    bands = sp_bands(p_s, p_p, gt_p)
+    upd = {"serial": outs_s.n_update_features.cpu().numpy().tolist(),
+           "parallel": outs_p["n_update_features"].cpu().numpy().tolist()}
+    ends = {"serial": end_s.imu.p.cpu().numpy(),
+            "parallel": end_p.imu.p.cpu().numpy()}
+    vs_jax = {}
+    for run in ("serial", "parallel"):
+        jax_run = JAX_TEMPORAL[run]
+        diff = [k for k, (a, b) in enumerate(zip(upd[run],
+                                                  jax_run["n_update"]))
+                if a != b]
+        end_err = float(np.abs(ends[run] - jax_run["end_p"]).max())
+        vs_jax[run] = {"update_frames_differing": len(diff),
+                       "first_differing": diff[:5], "end_p_err_m": end_err,
+                       "rmse_jax_m": jax_run["rmse_m"]}
+        check(not diff and len(upd[run]) == len(jax_run["n_update"]),
+              f"sequence parallel: {run} update counts on all {T} frames "
+              f"equal to the JAX package's ({len(diff)} differ: {diff[:5]})")
+        check(end_err < SP_END_TOL_M,
+              f"sequence parallel: {run} end position within "
+              f"{SP_END_TOL_M} m of the JAX package's ({end_err:.2e})")
+    check(k4_par * T == k4_serial * block_frames and k4_serial > 0,
+          f"sequence parallel: K4 {k4_par / block_frames:.2f} launches a "
+          f"batched block frame == {k4_serial / T:.2f} a serial frame")
+    check(not inside, f"sequence parallel: no host read inside the blocks' "
+                      f"frames ({len(inside)}: {sorted(set(inside))[:5]})")
+    return {"frames": T, "blocks": SP_BLOCKS, "n_iters": SP_ITERS,
+            "serial_s": serial_s, "parallel_s": parallel_s,
+            "speedup": serial_s / parallel_s,
+            "ms_per_frame_serial": serial_s * 1e3 / T,
+            "ms_per_batched_frame": parallel_s * 1e3 / block_frames,
+            **bands, "jax_mean_gap_m": JAX_TEMPORAL["parallel"].get(
+                "mean_gap_m"),
+            "vs_jax": vs_jax, "k4_launches": k4_par,
+            "k4_launches_serial": k4_serial,
+            "host_reads_in_blocks": inside,
+            "host_reads_outside_blocks": len(outside),
+            "host_reads_outside_where": sorted(set(outside))}
+
+
+def sequence_parallel_small(dev):
+    """Phase 14 (b): tests/test_temporal.py's world (sw 10, 80 features, 120
+    frames) in float64: n_iters = K within SP_EXACT_TOL of the serial
+    replay (p on every frame, the end state's P), update counts equal;
+    and n_iters = 2 within tests/test_temporal.py's band."""
+    import torch
+
+    from orcvio_tpu_torch.filter.pipeline import run_sequence
+    from orcvio_tpu_torch.parallel.temporal import seq_parallel_replay
+
+    cfg, st, frames, chi2, gt_p = sp_world(dev, SP_SMALL_CFG, SP_SMALL_SIM)
+    end_s, outs_s = run_sequence(cfg, st, frames, chi2)
+    end_k, outs_k = seq_parallel_replay(cfg, st, frames, chi2,
+                                        n_blocks=SP_BLOCKS,
+                                        n_iters=SP_BLOCKS)
+    _, outs_2 = seq_parallel_replay(cfg, st, frames, chi2, n_blocks=SP_BLOCKS,
+                                    n_iters=SP_ITERS)
+    p_err = float((outs_k["p"] - outs_s.p).abs().max())
+    P_err = float((end_k.P - end_s.P).abs().max())
+    same_upd = bool(torch.equal(outs_k["n_update_features"],
+                                outs_s.n_update_features))
+    check(p_err < SP_EXACT_TOL and P_err < SP_EXACT_TOL and same_upd,
+          f"sequence parallel: n_iters = K against the serial replay, p "
+          f"{p_err:.2e}, P {P_err:.2e} < {SP_EXACT_TOL}, update counts "
+          f"{'equal' if same_upd else 'differ'}")
+    bands = sp_bands(outs_s.p.cpu().numpy(), outs_2["p"].cpu().numpy(), gt_p)
+    check(bands["in_band"],
+          f"sequence parallel: n_iters = {SP_ITERS} RMSE "
+          f"{bands['rmse_parallel_m']:.4f} <= {bands['rmse_band_m']:.4f} m "
+          f"and mean gap {bands['mean_gap_m']:.4f} < "
+          f"{bands['gap_limit_m']:.4f} m (tests/test_temporal.py's band)")
+    return {"frames": int(frames.t.shape[0]), "p_err_m": p_err,
+            "P_err": P_err, "updates_equal": same_upd,
+            "n_update_total": int(outs_s.n_update_features.sum()),
+            "band_n_iters_2": bands}
+
+
+def fp_inputs(dev, F=FP_CAPACITY, seed=6):
+    """tests/test_parallel.py's feature-parallel case in the port, float64:
+    five clones observing F seeded landmarks; (cfg, state, tracks,
+    positions, use mask)."""
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.filter import features as feat
+    from orcvio_tpu_torch.filter.augment import cam_poses, state_augmentation
+    from orcvio_tpu_torch.filter.state import FilterState
+    from orcvio_tpu_torch.filter.tracks import compact_tracks
+    from orcvio_tpu_torch.filter.triangulation import triangulate
+    from orcvio_tpu_torch.math import so3
+
+    f64 = torch.float64
+    rng = np.random.default_rng(seed)
+    cfg = FilterConfig(sw_size=6, max_features=F, max_track_len=4,
+                       observation_noise=0.004, tri_translation_threshold=-1.0)
+    st = FilterState.create(cfg, f64, device=dev)
+    lm = rng.normal(size=(F, 3)) * 2 + [0, 0, 8]
+    ids = torch.arange(F, dtype=torch.int32, device=dev)
+    for i in range(5):
+        R = so3.exp(torch.as_tensor(rng.normal(size=3) * 0.05, device=dev))
+        p = torch.tensor([0.4 * i, 0.05 * i, 0.0], dtype=f64, device=dev)
+        imu = st.imu.replace(R=R, p=p)
+        st = st.replace(imu=imu, imu_fej_now=imu,
+                        t=torch.tensor(float(i), dtype=f64, device=dev))
+        st = state_augmentation(cfg, st)
+        R_c2w, t_c_w = cam_poses(st)
+        pc = (lm - t_c_w[i].cpu().numpy()) @ R_c2w[i].cpu().numpy()
+        uv = torch.as_tensor(pc[:, :2] / pc[:, 2:3]
+                             + rng.normal(size=(F, 2)) * 1e-3, device=dev)
+        tb, _ = feat.add_observations(
+            st.features, torch.tensor(i, device=dev), ids, uv, uv * 0,
+            torch.ones(F, dtype=torch.bool, device=dev))
+        st = st.replace(features=tb)
+    st = st.replace(P=torch.eye(cfg.state_dim, dtype=f64, device=dev) * 1e-2)
+    ct = compact_tracks(st.features, st.clones.order, cfg.max_track_len)
+    R_c2w, t_c_w = cam_poses(st)
+    tri = triangulate(cfg, ct, R_c2w, t_c_w)
+    return cfg, st, ct, tri.p_world, tri.valid & (2 * ct.n_obs > 3)
+
+
+def feature_parallel_check(dev):
+    """Phase 14 (c): the 8-shard update at capacity 21 against one
+    information_update on the same inputs, on the card."""
+    from orcvio_tpu_torch.filter.update import (feature_jacobians,
+                                                information_update)
+    from orcvio_tpu_torch.parallel.feature_parallel import (
+        feature_parallel_update, information_from_jacobians)
+
+    cfg, st, ct, p_w, use = fp_inputs(dev)
+    st_c, dx_c = feature_parallel_update(cfg, n_shards=FP_SHARDS)(
+        st, ct, p_w, use)
+    fj = feature_jacobians(cfg, st, ct, p_w)
+    st_b, dx_b = information_update(cfg, st,
+                                    *information_from_jacobians(fj, use))
+    errs = {"dx": float((dx_c - dx_b).abs().max()),
+            "P": float((st_c.P - st_b.P).abs().max()),
+            "p": float((st_c.imu.p - st_b.imu.p).abs().max())}
+    n_use = int(use.sum())
+    check(max(errs.values()) < FP_TOL and n_use > 8,
+          f"feature parallel: {FP_SHARDS} shards of capacity "
+          f"{FP_CAPACITY} ({n_use} features used) against one "
+          f"information_update, max err {max(errs.values()):.2e} < {FP_TOL}")
+    return {"capacity": FP_CAPACITY, "shards": FP_SHARDS, "used": n_use,
+            "max_abs_err": errs}
+
+
+def scaling_check(dev):
+    """Phase 14 (d): eval.scaling.measure([1]) on the card at
+    SCALING_FRAMES frames, SCALING_REPS timed passes."""
+    from orcvio_tpu_torch.eval import scaling
+
+    out = scaling.measure([1], seqs_per_device=2, n_frames=SCALING_FRAMES,
+                          reps=SCALING_REPS, dtype="float32", device=dev)
+    row = out["weak_scaling"][0]
+    check(row["finite"] and row["fps"] > 0
+          and row["hot_loop_collectives"] == 0,
+          f"scaling: measure([1]) {row['fps']:.1f} frames/s, "
+          f"{row['hot_loop_collectives']} collectives in the timed loop")
+    return out
+
+
+def equalize_check(dev, seq):
+    """Phase 14 (e): CLAHE and the pwl equalization over EQ_FRAMES frames of
+    phase 2's known-flow stream on the card: the equalized frames against
+    the CPU's (within EQ_IMG_TOL gray levels; the frames hold integer gray
+    levels, so every pixel falls in the same histogram bin on both
+    devices and no pixel sits on a bin edge); then the tracker at the
+    bench configuration, with equalize "clahe" (as the JAX package's
+    TrackerConfig) and, for pwl, with equalize off on the card's own pwl
+    frames rounded to gray levels (the tracker, as the JAX package's,
+    knows no pwl mode): K1 once and K2 four times a frame, the flow error,
+    and the first EQ_CPU_FRAMES frames' tracks against the CPU's plain
+    path with the same RANSAC draws (phase 2's small-stream
+    tolerances)."""
+    import torch
+
+    from orcvio_tpu_torch.eval.staged import make_tracker_scan, stage_sequence
+    from orcvio_tpu_torch.frontend.image import clahe, equalize_hist
+    from orcvio_tpu_torch.frontend.tracker import TrackerConfig, TrackerState
+
+    f32, cpu = torch.float32, torch.device("cpu")
+    tc0 = TrackerConfig(**TRACKER)
+    part = tuple(x[:EQ_FRAMES] for x in seq)
+    gumbel = np.random.default_rng(3).gumbel(
+        size=(EQ_FRAMES, 128, 8, tc0.capacity))
+    equalize = {"clahe": clahe,
+                "pwl": lambda v: equalize_hist(v, mode="pwl")}
+    report = {}
+    for mode in ("clahe", "pwl"):
+        img_err, eq_frames = 0.0, {dev: [], cpu: []}
+        for k in range(EQ_FRAMES):
+            eq = {d: equalize[mode](torch.as_tensor(
+                part[0][k], device=d).to(f32)) for d in (dev, cpu)}
+            img_err = max(img_err,
+                          float((eq[dev].cpu() - eq[cpu]).abs().max()))
+            for d, v in eq.items():
+                eq_frames[d].append(v.round().to(torch.uint8).cpu().numpy())
+        check(img_err < EQ_IMG_TOL,
+              f"equalize {mode}: {EQ_FRAMES} card frames within "
+              f"{img_err:.2e} < {EQ_IMG_TOL} gray of the CPU's")
+
+        if mode == "clahe":
+            tc, images = tc0._replace(equalize="clahe"), {dev: part[0],
+                                                          cpu: part[0]}
+        else:
+            tc = tc0._replace(equalize=False)
+            images = {d: np.stack(v) for d, v in eq_frames.items()}
+        res = {}
+        for name, d, n in (("card", dev, EQ_FRAMES),
+                           ("cpu", cpu, EQ_CPU_FRAMES)):
+            if name == "card":
+                launch_counts(reset=True)
+            _, fr = make_tracker_scan(tc, np.eye(3), f32, device=d)(
+                TrackerState.create(tc, f32, device=d),
+                stage_sequence(images[d][:n], *(x[:n] for x in part[1:]),
+                               f32, device=d),
+                ransac_gumbel=torch.as_tensor(gumbel[:n], dtype=f32,
+                                              device=d))
+            if name == "card":
+                launches = launch_counts()
+                counts, flow = tracked_flow(fr, tc.K)
+            res[name] = (fr.fids.cpu().numpy(), fr.uvs.cpu().numpy())
+        check(launches["window_gather"] == EQ_FRAMES
+              and launches["lk_level"] == 4 * EQ_FRAMES,
+              f"equalize {mode}: K1 {launches['window_gather']} == "
+              f"{EQ_FRAMES}, K2 {launches['lk_level']} == {4 * EQ_FRAMES}")
+        flow_err = float(np.median(np.linalg.norm(flow - np.asarray(SHIFT),
+                                                  axis=1)))
+        check(float(np.median(counts)) >= 100 and flow_err < 0.1,
+              f"equalize {mode}: median tracked {np.median(counts)} >= 100, "
+              f"median flow error {flow_err:.4f} px < 0.1")
+        card = tuple(a[:EQ_CPU_FRAMES] for a in res["card"])
+        same = card[0] == res["cpu"][0]
+        uv_err, n_apart = same_track_uv_err(card, res["cpu"], tc.K)
+        check(same.mean() >= 0.95 and uv_err.size > 0
+              and uv_err.max() < 0.05,
+              f"equalize {mode}: {EQ_CPU_FRAMES} frames against the CPU's "
+              f"plain path, fids equal on {same.mean():.3f} >= 0.95 of rows, "
+              f"max uv diff {uv_err.max() if uv_err.size else None} px "
+              f"< 0.05 ({n_apart} tracks began apart)")
+        report[mode] = {"img_max_abs_err": img_err,
+                        "tracker_equalize": tc.equalize,
+                        "launches": launches,
+                        "tracked_median": float(np.median(counts)),
+                        "flow_err_median_px": flow_err,
+                        "cpu_frames": EQ_CPU_FRAMES,
+                        "fids_equal_share": float(same.mean()),
+                        "uv_max_diff_px": float(uv_err.max())
+                        if uv_err.size else None}
+    return report
+
+
+def checkpoint_check(dev):
+    """Phase 14 (f): a card FilterState (tests/test_parallel.py's case)
+    saved and restored bit for bit, on the card."""
+    import torch
+
+    from orcvio_tpu_torch.filter.state import FilterState
+    from orcvio_tpu_torch.tree import tree_map
+    from orcvio_tpu_torch.utils.checkpoint import restore_state, save_state
+
+    cfg, st, _, _, _ = fp_inputs(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_state(tmp, st, step=5)
+        back = restore_state(tmp, FilterState.create(
+            cfg, torch.float64, device=dev), step=5)
+    same = []
+    tree_map(lambda a, b: same.append(
+        torch.equal(a, b) and a.dtype == b.dtype and b.is_cuda), st, back)
+    check(all(same), f"checkpoint: a card FilterState restored bit for bit "
+                     f"({sum(same)} of {len(same)} leaves)")
+    return {"leaves": len(same), "equal": sum(same)}
+
+
+def batch_eval_check(dev):
+    """Phase 14 (g): run_synthetic_batch_vmap against run_synthetic_case
+    for seeds 3 and 4 (tests/test_parallel.py::TestVmapBatchEval's filter,
+    its world cut to 20 frames, float64): update counts equal, RMSE within
+    1e-6 m."""
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.dataio.synthetic import SimConfig
+    from orcvio_tpu_torch.eval.batch import (run_synthetic_batch_vmap,
+                                             run_synthetic_case)
+
+    cfg = FilterConfig(**BATCH_EVAL_CFG)
+    sims = [SimConfig(**BATCH_EVAL_SIM, seed=s) for s in BATCH_EVAL_SEEDS]
+    batched = run_synthetic_batch_vmap(cfg, sims, torch.float64, dev)
+    rows = []
+    for sim, got in zip(sims, batched):
+        ref = run_synthetic_case(cfg, sim, torch.float64, dev)
+        err = abs(got["rmse_pos_m"] - ref["rmse_pos_m"])
+        check(got["updates"] == ref["updates"] and err < 1e-6
+              and got["rmse_pos_m"] < 0.3,
+              f"batch eval: seed {sim.seed} vmapped against alone, updates "
+              f"{got['updates']} == {ref['updates']}, RMSE "
+              f"{got['rmse_pos_m']:.5f} m within {err:.1e} < 1e-6")
+        rows.append({"seed": sim.seed, "vmap": got, "alone": ref})
+    return rows
+
+
+def scale_out_phase(dev, seq):
+    """Phase 14: (a) the sequence-parallel replay at full width, (b) at
+    n_iters = K and in tests/test_temporal.py's band, (c) the
+    feature-parallel update, (d) the scaling harness, (e) CLAHE and the
+    pwl equalization, each under the tracker, (f) a checkpoint round
+    trip, (g) the batch evaluator. Returns the report (seconds by part)."""
+    report, seconds = {}, {}
+    for name, part in (
+            ("sequence_parallel", lambda: sequence_parallel_full(dev)),
+            ("sequence_parallel_k", lambda: sequence_parallel_small(dev)),
+            ("feature_parallel", lambda: feature_parallel_check(dev)),
+            ("scaling", lambda: scaling_check(dev)),
+            ("equalize", lambda: equalize_check(dev, seq)),
+            ("checkpoint", lambda: checkpoint_check(dev)),
+            ("batch_eval", lambda: batch_eval_check(dev))):
+        t0 = time.perf_counter()
+        report[name] = part()
+        seconds[name] = time.perf_counter() - t0
+    report["seconds"] = seconds
+    return report
+
+
 def main() -> int:
     t_lap, laps = [time.perf_counter()], {}
 
@@ -2734,7 +3304,8 @@ def main() -> int:
                   "levels and the backward pass"},
     ]
     part10 = type(staged)(*(x[:10] for x in staged))
-    tracker_profile = profile_frames(lambda: scan(ts0, part10), 10)
+    tracker_profile = profile_frames(lambda: scan(ts0, part10), 10,
+                                     cross_check=True)
 
     lap("4 times")
     # ---------------- 5. the end-to-end path ----------------
@@ -2799,10 +3370,10 @@ def main() -> int:
         m = {"rmse_trans": float("nan"), "rmse_rot_deg": float("nan"),
              "error": str(e)}
     ate_m = m["rmse_trans"]
-    ate_limit = JAX_E2E["ate_m"] + ATE_MARGIN_M
-    check(bool(np.isfinite(ate_m)) and ate_m <= ate_limit,
-          f"ATE {ate_m:.4f} m (posyaw) <= JAX {JAX_E2E['ate_m']:.4f} m + "
-          f"{ATE_MARGIN_M} = {ate_limit:.4f} m")
+    e2e_ate_limit = ate_limit(JAX_E2E["ate_m"])
+    check(bool(np.isfinite(ate_m)) and ate_m <= e2e_ate_limit,
+          f"ATE {ate_m:.4f} m (posyaw) <= {e2e_ate_limit:.4f} m, JAX's "
+          f"{JAX_E2E['ate_m']:.4f} m + min({ATE_MARGIN_M}, itself)")
     check(e2e_launches["cov_update"] == 3 * n_filter,
           f"K4 launches {e2e_launches['cov_update']} == 3 x filter frames "
           f"= {3 * n_filter}")
@@ -2813,16 +3384,19 @@ def main() -> int:
     n_upd = outs["n_upd"].cpu().numpy()
 
     # From the states after the frame following init (the last frame that
-    # reads the flag): ms/frame over E2E_REPLAYS replays of a window of
-    # flight, CUDA events (the host sets the pace); no host sync in 20 of
-    # those frames; 10 of them profiled. The window, not the whole stream,
-    # keeps the script inside its time: a whole replay takes some 50 s.
-    e2e_ms, e2e_profile = np.full(1, np.nan), None
+    # reads the flag): ms/frame over E2E_REPLAYS replays of E2E_WINDOW
+    # frames, the standstill's end and the flight's start, CUDA events (the
+    # host sets the pace); no host sync in 20 of those frames; 10 of them
+    # profiled. The window, not the whole stream, keeps the script inside
+    # its time: a whole replay takes some 50 s.
+    e2e_ms, e2e_profile, e2e_secs = np.full(1, np.nan), None, {}
     window = range(0 if k0 is None else k0 + 2,
                    E2E_WINDOW + (0 if k0 is None else k0 + 2))
     if k0 is not None and window.stop <= TE:
+        t0 = time.perf_counter()
         (ts_b, vs_b), _ = replay(ts_e, vs_e, staged_e, frames=range(k0 + 2))
         torch.cuda.synchronize()
+        e2e_secs["to_window"] = time.perf_counter() - t0
         ev = []
         for _ in range(E2E_REPLAYS):
             e0 = torch.cuda.Event(enable_timing=True)
@@ -2833,11 +3407,16 @@ def main() -> int:
             ev.append((e0, e1))
         torch.cuda.synchronize()
         e2e_ms = np.asarray([a.elapsed_time(b) / len(window) for a, b in ev])
+        e2e_secs["window"] = time.perf_counter() - t0 - e2e_secs["to_window"]
+        t0 = time.perf_counter()
         check_no_syncs(lambda: replay(ts_b, vs_b, staged_e,
                                       frames=window[:20]),
                        "20 end-to-end frames after init")
+        e2e_secs["sync_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         e2e_profile = profile_frames(lambda: replay(
             ts_b, vs_b, staged_e, frames=window[:10]), 10)
+        e2e_secs["profile"] = time.perf_counter() - t0
     else:
         check(False, f"{E2E_WINDOW} frames after init for the timing, the "
                      "sync check and the profile")
@@ -2851,12 +3430,12 @@ def main() -> int:
                   "ate_m": ate_m, "ate_rot_deg": m["rmse_rot_deg"],
                   "jax_ate_m": JAX_E2E["ate_m"],
                   "jax_init_frame": JAX_E2E["init_frame"],
-                  "ate_limit_m": ate_limit,
+                  "ate_limit_m": e2e_ate_limit,
                   "n_upd_total": int(n_upd.sum()),
                   "jax_n_upd_total": JAX_E2E["n_upd_total"],
                   "zupt_frames": int(outs["zupt"].sum()),
                   "launches": e2e_launches, "first_run_s": e2e_first_s,
-                  "stream_s": stream_s,
+                  "stream_s": stream_s, "seconds": e2e_secs,
                   "config": "752x480, 3 levels, 200 features; filter D=172, "
                             "sw 20, 30 EKF features, f32"}})
 
@@ -3212,6 +3791,18 @@ def main() -> int:
             kern.update(k4_images)
 
     lap("13 object images")
+    # ---------------- 14. scale-out and tools ----------------
+    scale = scale_out_phase(dev, main_seq)
+    emit({"scale_out": scale})
+    for kern in kernels:
+        if kern["name"] == "cov_update":
+            kern["launches_sequence_parallel"] = scale["sequence_parallel"][
+                "k4_launches"]
+        elif kern["name"] in ("window_gather", "lk_level"):
+            for mode, eq in scale["equalize"].items():
+                kern[f"launches_{mode}"] = eq["launches"][kern["name"]]
+
+    lap("14 scale-out")
     emit({"phase_seconds": laps, "total_s": sum(laps.values())})
     for kern in kernels:  # None where the library was built before this run
         kern["ptxas"] = ptxas.get(Path(kern["source"]).stem)

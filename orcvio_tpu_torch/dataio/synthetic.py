@@ -303,3 +303,32 @@ def render_plane_view(texture, tex_scale, R_c2w, t_c_w, K, height, width):
     vals = bilinear_sample(texture, tex_xy.reshape(-1, 2)).reshape(height, width)
     visible = (d[..., 2] < -1e-3) & (lam > 0.1)
     return torch.where(visible, vals, 0.0)
+
+
+# the camera extrinsics of the synthetic filter runs (forward-looking
+# camera, z along the body's x)
+R_B2C_SIM = np.asarray([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+T_C_B_SIM = np.asarray([0.05, 0.02, 0.0])
+
+
+def initialized_run(cfg, sim: SimConfig, dtype=torch.float32, device=None):
+    """(state, frames, chi2) of a filter run on sim's stream: the frames of
+    ``generate`` with the extrinsics R_B2C_SIM, T_C_B_SIM, and a filter
+    state at sim's ground truth at t = 0 (the default prior), initialized.
+    The set-up of the JAX repository's ``__graft_entry__._build``, on
+    `device` (the card unless given)."""
+    from ..filter.pipeline import build_chi2_table
+    from ..filter.state import FilterState
+
+    device = resolve_device(device)
+    frames = generate(sim, R_B2C_SIM, T_C_B_SIM, dtype, device).frames
+    st = FilterState.create(cfg, dtype, device=device)
+    R0, p0, v0 = (torch.as_tensor(x).to(device, dtype)
+                  for x in initial_state_np(sim))
+    imu = st.imu.replace(R=R0, p=p0, v=v0)
+    st = st.replace(imu=imu, imu_fej_now=imu, imu_old=imu,
+                    R_b2c=torch.as_tensor(R_B2C_SIM).to(device, dtype),
+                    t_c_b=torch.as_tensor(T_C_B_SIM).to(device, dtype),
+                    initialized=torch.ones((), dtype=torch.bool,
+                                           device=device))
+    return st, frames, build_chi2_table(cfg, dtype, device)

@@ -25,7 +25,7 @@ from ..tree import Tree, tree_stack
 from ..math import so3
 from . import orb
 from .detect import detect_grid
-from .image import build_pyramid, equalize_hist
+from .image import build_pyramid, clahe, equalize_hist
 from .klt import forward_backward_track, prepare_pyramid
 from .ransac import ransac_fundamental
 from .undistort import normalized_to_pixel, undistort_pixels
@@ -46,7 +46,9 @@ class TrackerConfig(NamedTuple):
     min_distance: float = 20.0
     detect_every: int = 1  # re-detect every Nth frame; 2 = the reference's
     # pub_frequency cadence (image_processor.cpp:197)
-    equalize: bool = True
+    # "clahe": image.clahe (the reference's cv::CLAHE); any other true value:
+    # equalize_hist's default "poly" mode, as the JAX package; False: none
+    equalize: bool | str = True
     K: tuple = (458.654, 457.296, 367.215, 248.375)  # fx fy cx cy
     dist_model: str = "radtan"
     dist_coeffs: tuple = (0.0, 0.0, 0.0, 0.0)
@@ -135,8 +137,8 @@ def process_frame(tc: TrackerConfig, ts: TrackerState, img, t, mean_gyro,
     if img.is_cuda:
         no_tf32()
     if tc.equalize == "clahe":
-        raise NotImplementedError("clahe equalization is not ported")
-    if tc.equalize:
+        img = clahe(img)
+    elif tc.equalize:
         img = equalize_hist(img)
     pyr = prepare_pyramid(build_pyramid(img, tc.pyramid_levels))
     N = tc.capacity

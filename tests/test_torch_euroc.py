@@ -375,9 +375,13 @@ def jax_euroc_figures():
             for run, extra in runs:
                 tum = os.path.join(tmp, f"{run}.txt")
                 cap = {}
+                # the bench's runs take its first EUROC_RUN_FRAMES frames,
+                # as phase 9's do
+                runs_n = cs.EUROC_RUN_FRAMES if name == "bench" else n
                 _jax_main_run(["--euroc", d, "--config",
                                os.path.join(d, "config.yaml"), "--out", tum,
-                               "--backend", "cpu", "--max-frames", str(n),
+                               "--backend", "cpu", "--max-frames",
+                               str(runs_n),
                                "--imu-slab", str(cs.BENCH_FILTER["imu_slab"])]
                               + extra, cap)
                 fig = _figures(d, tum, from_init=run == "dynamic")

@@ -7,8 +7,12 @@
 * Entry points without device= run on CUDA, and raise where there is none
   (the batched replay, parallel/'s mesh and the object layer's
   orchestrator, staged replay and config-A run too, and the image path's
-  detector, network loader, config-B run and StarMap bench).
-* Each object entry point turns cuDNN's TF32 off before its first op.
+  detector, network loader, config-B run and StarMap bench, the scaling
+  harness, the batch evaluator and the NEES Monte-Carlo).
+* Each object entry point turns cuDNN's TF32 off before its first op, and
+  so does each scale-out and tooling entry point (the sequence- and
+  feature-parallel updates, the scaling harness, the batch evaluator);
+  matplotlib is imported only inside the plotting functions.
 * Every filter flag runs: the IMU intrinsics and Schmidt flags build a
   filter state, a frame and a replay on the CPU.
 * Kernel wrappers given CPU tensors take the plain versions: their launch
@@ -84,7 +88,11 @@ def test_port_import_leaves_jax_unloaded():
                 "dataio.render_object", "models.starmap",
                 "models.flax_msgpack", "objects.detector",
                 "eval.object_map_cnn", "dataio.kitti", "eval.kitti_objects",
-                "scripts.starmap_bench"):
+                "scripts.starmap_bench", "parallel.feature_parallel",
+                "parallel.temporal", "parallel.multihost", "eval.scaling",
+                "eval.batch", "eval.plots", "utils.checkpoint",
+                "utils.profiling", "scripts.multihost_scaling",
+                "scripts.nees_mc"):
         assert f"orcvio_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
@@ -93,6 +101,19 @@ def test_port_import_leaves_jax_unloaded():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_matplotlib_is_imported_on_first_call():
+    """The card's machine has no matplotlib: no module of the port imports
+    it at module level."""
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else [node.module])
+                assert not any((m or "").startswith("matplotlib")
+                               for m in mods), path.name
 
 
 def test_port_parses_on_the_oldest_python():
@@ -201,6 +222,31 @@ def test_entry_points_need_a_device(tmp_path):
                        np.zeros((1, 2, 3)), np.ones((1, 2), bool))
 
 
+def test_scale_out_entry_points_need_a_device(tmp_path):
+    from orcvio_tpu_torch.dataio.synthetic import SimConfig, initialized_run
+    from orcvio_tpu_torch.eval import batch, scaling
+    from orcvio_tpu_torch.scripts import nees_mc
+
+    cfg = FilterConfig(sw_size=4, max_features=8)
+    sim = SimConfig(n_frames=2)
+    if torch.cuda.is_available():
+        assert initialized_run(cfg, sim)[0].P.is_cuda
+        return
+    calls = [lambda: initialized_run(cfg, sim),
+             lambda: scaling.measure([1], n_frames=2, reps=1, size="tiny"),
+             lambda: scaling.main(["--frames", "2", "--size", "tiny"]),
+             lambda: batch.run_synthetic_case(cfg, sim),
+             lambda: batch.run_synthetic_batch_vmap(cfg, [sim]),
+             lambda: batch.batch_run_synthetic({"a": {}}, [0]),
+             lambda: batch.run_euroc_case(cfg, None, str(tmp_path)),
+             lambda: nees_mc.main(["--seeds", "1", "--out",
+                                   str(tmp_path / "n.json")])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not any(tmp_path.iterdir())
+
+
 def test_image_path_entry_points_need_a_device():
     from orcvio_tpu_torch.dataio.render_object import CAR_KEYPOINTS
     from orcvio_tpu_torch.eval.object_map_cnn import run_cnn_object_mapping
@@ -265,6 +311,42 @@ def test_object_entry_points_turn_tf32_off(entry, monkeypatch):
         calls[entry]()
     except _Stop:
         pass
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("entry", [
+    "seq_parallel_replay", "feature_parallel_update", "measure",
+    "run_synthetic_case", "run_synthetic_batch_vmap"])
+def test_scale_out_entry_points_turn_tf32_off(entry, monkeypatch):
+    """Each scale-out and tooling entry point turns TF32 off before its
+    first op (each is stopped right after its set-up)."""
+    from orcvio_tpu_torch.dataio.synthetic import SimConfig
+    from orcvio_tpu_torch.eval import batch, scaling
+    from orcvio_tpu_torch.parallel import feature_parallel, multihost, temporal
+
+    monkeypatch.setattr(temporal, "make_block_replay", _stop)
+    monkeypatch.setattr(feature_parallel, "pad_feature_axis", _stop)
+    monkeypatch.setattr(multihost, "maybe_initialize", _stop)
+    monkeypatch.setattr(batch, "_synthetic_start", _stop)
+    cfg = FilterConfig(sw_size=4, max_features=8)
+    sim = SimConfig(n_frames=2)
+    calls = {
+        "seq_parallel_replay": lambda: temporal.seq_parallel_replay(
+            cfg, None, None, None, n_blocks=2),
+        "feature_parallel_update": lambda: feature_parallel.
+        feature_parallel_update(cfg, n_shards=2)(
+            FilterState.create(cfg, torch.float64, device="cpu"), None, None,
+            None),
+        "measure": lambda: scaling.measure([1], device="cpu"),
+        "run_synthetic_case": lambda: batch.run_synthetic_case(
+            cfg, sim, device="cpu"),
+        "run_synthetic_batch_vmap": lambda: batch.run_synthetic_batch_vmap(
+            cfg, [sim], device="cpu")}
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(_Stop):
+        calls[entry]()
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
 

@@ -164,8 +164,9 @@ def _config_a(use_object_update):
 
 
 def _staged_f32():
-    """bench.py:272-368's staged replay (float32, 300 frames, map capacity
-    32), run without x64: its map size and ATE."""
+    """bench.py:272-368's staged replay (float32, map capacity 32) on the
+    12-car world cut to chip_smoke.OBJ_FRAMES frames, run without x64: its
+    map size and ATE."""
     import jax
     import jax.numpy as jnp
 
@@ -175,8 +176,10 @@ def _staged_f32():
     from orcvio_tpu.objects.staged import ObjectsStream, make_objects_replay
     from orcvio_tpu.vio import VioState
 
+    import chip_smoke as cs
+
     dtype = jnp.float32
-    wc = jsim.WorldConfig()
+    wc = jsim.WorldConfig(n_frames=cs.OBJ_FRAMES)
     sim, ocfg = jax_config(wc)
     data = generate(sim, R_b2c=np.asarray([[0., -1, 0], [0, 0, -1], [1, 0, 0]],
                                           np.float32),
