@@ -174,7 +174,24 @@ Phases:
     CLAHE and on the pwl frames (K1 and K2 as in phase 2), 4 frames' tracks
     against the CPU's plain path; (f) a card filter state through a
     checkpoint, bit for bit; (g) the batch evaluator's vmapped run against
-    its runs one by one.
+    its runs one by one;
+15. StarMap training (orcvio_tpu_torch/scripts/train_starmap.py at the
+    shipped widths, batch 32, float32; cuDNN's TF32 set on first, the
+    trainer must turn it off): (b) its main at --steps 200 --dataset 512
+    from its own init: the loss at step 199 at most 1.5x the JAX
+    package's own float32 CPU run's, the checkpoint it writes read back
+    by load_pretrained with bit-identical heatmaps; (a) the first 5 steps
+    of a --steps 3000 schedule from the shipped checkpoint on 256 renders,
+    against the same steps in float64 on the CPU and the JAX package's
+    float64 losses: the losses within 1e-4, each leaf's first-step
+    gradient within 1e-3 in relative norm (the biases that feed a
+    train-mode BN, zero but for rounding, held through the loss), the
+    running statistics after the first step within 1e-4; (c) the shipped
+    checkpoint's recall@2px and cvf-label accuracy on the trainer's 32
+    renders within 0.03 of the JAX package's; (d) ms a training step
+    (CUDA events, the median of 20), images/s, kernels a step, the
+    device's busy share and the share of its time in convolution
+    kernels; K1-K5 launched no time on this path.
 
 Then the seconds each phase took.
 
@@ -563,6 +580,55 @@ JAX_TEMPORAL = {
     },
 }
 EQ_CPU_FRAMES = 4  # of them through the CPU's plain path as well
+# StarMap training (phase 15): the trainer's main at TRAIN_SHORT from its
+# own init (its loss at the last step within TRAIN_LOSS_BAND times the JAX
+# package's own float32 run's: the inits' draws differ), the first
+# TRAIN_PARITY_STEPS steps of a TRAIN_SCHEDULE-step schedule from the
+# shipped checkpoint in float32 on the card against float64 on the CPU,
+# the shipped checkpoint's evaluation, then TRAIN_TIME_STEPS timed steps.
+TRAIN_SHORT = ("--steps", "200", "--dataset", "512")
+TRAIN_LOSS_BAND = 1.5
+TRAIN_PARITY_STEPS = 5
+TRAIN_PARITY_DATASET = 256
+TRAIN_SCHEDULE = 3000
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_STATS_RTOL = 1e-4
+TRAIN_F64_RTOL = 1e-9  # the port's float64 CPU losses against JAX's
+TRAIN_EVAL_TOL = 0.03
+TRAIN_TIME_STEPS = 20
+TRAIN_PROFILE_STEPS = 5
+# Leaves whose float64 gradient is below TRAIN_ZERO_GRAD of the largest
+# leaf's are zero but for rounding (biases whose per-channel constant a
+# train-mode BN downstream takes out: at least the 53 that feed one
+# directly, stem, each conv0, conv1 and lin): held through the loss, as
+# Adam turns their rounding into steps as large as the learning rate.
+TRAIN_ZERO_GRAD = 1e-10
+TRAIN_BN_FED_MIN = 53
+# a max-pool window whose float32 argmax differs from float64's must be a
+# tie: its two inputs within this share of the pool input's largest value
+TRAIN_TIE_REL = 1e-5
+# device kernels counted as convolutions (cuDNN's forward, data- and
+# weight-gradient kernels and the GEMMs it lowers 1x1 convolutions to; the
+# network has no other matmul)
+TRAIN_CONV_KERNEL = re.compile(
+    r"conv|fprop|dgrad|wgrad|implicit|gemm|cudnn|xmma|winograd|cutlass",
+    re.IGNORECASE)
+# The JAX package's figures (python tests/test_torch_starmap_train.py
+# --jax-train, CPU): the parity run's float64 losses (on the port's
+# renders, whose uint8 levels differ from the JAX script's on a few
+# pixels), the trainer's own float32 run at TRAIN_SHORT on its own
+# renders, the shipped checkpoint's evaluation (float32).
+JAX_TRAIN = {
+    "parity": {"losses_f64": [0.15380337613124856, 0.13638105178481508,
+                              0.15608639366302265, 0.13853286036175116,
+                              0.14529428181358878]},
+    "short_run": {"loss_0": 2.4569060802459717,
+                  "loss_199": 0.4949342906475067},
+    "eval_shipped": {"recall_at_2px": 0.881578947368421, "peaks": [67, 76],
+                     "label_accuracy": 0.912751677852349,
+                     "labels": [136, 149]},
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -799,23 +865,31 @@ def ptxas_usage(log):
     return out
 
 
+# device-side ranges the profiler adds around an optimizer's step: they
+# span kernels that are counted on their own
+ANNOTATIONS = ("Optimizer.",)
+
+
 def device_rows(prof, averages=False):
     """{name: [device ms, count]} over the kernels, copies and sets that
-    prof traced. Read off the profiler's raw events; key_averages() gives
-    the same rows (averages=True reads them there) but first builds a
-    Python tree of every host and device event, which takes longer than
-    the traced frames themselves (some 30 s for 3.5e5 events)."""
+    prof traced (not the annotation ranges, ANNOTATIONS). Read off the
+    profiler's raw events; key_averages() gives the same rows
+    (averages=True reads them there) but first builds a Python tree of
+    every host and device event, which takes longer than the traced
+    frames themselves (some 30 s for 3.5e5 events)."""
     import torch
     from torch.autograd.profiler_util import _rewrite_name
 
     if averages:
         return {e.key: [e.device_time_total / 1e3, e.count]
                 for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and e.device_time_total > 0}
+                if e.device_type.name == "CUDA" and e.device_time_total > 0
+                and not e.key.startswith(ANNOTATIONS)}
     cuda, acc = torch.autograd.DeviceType.CUDA, {}
     for e in prof.profiler.kineto_results.events():
         if (e.device_type() != cuda
-                or getattr(e, "is_hidden_event", lambda: False)()):
+                or getattr(e, "is_hidden_event", lambda: False)()
+                or e.name().startswith(ANNOTATIONS)):
             continue
         row = acc.setdefault(e.name(), [0.0, 0])
         # key_averages() counts an event that ends on another thread, but
@@ -832,13 +906,16 @@ def device_rows(prof, averages=False):
     return {k: v for k, v in rows.items() if v[0] > 0}
 
 
-def profile_frames(run, n, warm=True, cpu=True, cross_check=False):
+def profile_frames(run, n, warm=True, cpu=True, cross_check=False,
+                   share=None):
     """Device busy share and kernel time by name over run(), n frames;
     run() once first unless warm is False (its code already ran). With
     cpu False only the device's activity is traced: the host's ops are
     not recorded, which keeps their cost out of the wall time. With
     cross_check the rows read off the raw events are held against
-    key_averages()'s (names and counts equal, times within 1e-6 ms)."""
+    key_averages()'s (names and counts equal, times within 1e-6 ms). With
+    share (a compiled regex), the share of device time in the rows whose
+    name it finds, and those rows' names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -864,6 +941,10 @@ def profile_frames(run, n, warm=True, cpu=True, cross_check=False):
            "read_s": read_s,
            "top": [{"name": k[:60], "ms_per_frame": ms / n,
                     "calls_per_frame": c / n} for k, ms, c in rows[:10]]}
+    if share is not None:
+        hit = [r for r in rows if share.search(r[0])]
+        out["share_matching"] = sum(r[1] for r in hit) / max(busy_ms, 1e-12)
+        out["matching"] = [k[:60] for k, _, _ in hit]
     if cross_check:
         t0 = time.perf_counter()
         avg = device_rows(prof, averages=True)
@@ -2983,6 +3064,311 @@ def scale_out_phase(dev, seq):
     return report
 
 
+def all_launches():
+    """The launch counters of K1-K5 (K3 and K5 beside launch_counts')."""
+    from orcvio_tpu_torch.ops.lk_pallas import lk_iterate_fused
+    from orcvio_tpu_torch.scripts.race_extract import extract_pallas
+
+    return {**launch_counts(), "lk_iterate": lk_iterate_fused.launches,
+            "extract64": extract_pallas.launches}
+
+
+def rel(a, b):
+    """|a - b| / |b| of two tensors (their norms), or of two numbers."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def train_short_run(dev):
+    """Phase 15 (b): the trainer's main at TRAIN_SHORT on the card, from
+    its own init, with cuDNN's TF32 set on before: TF32 off after, the
+    loss at the last step against the JAX package's own run's, the
+    checkpoint read back by load_pretrained with bit-identical outputs in
+    eval mode (on 8 renders)."""
+    import torch
+
+    from orcvio_tpu_torch.dataio.render_object import make_training_batch
+    from orcvio_tpu_torch.models.starmap import load_pretrained
+    from orcvio_tpu_torch.scripts import train_starmap as ts
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as tmp:
+        report, net = ts.main([*TRAIN_SHORT, "--out",
+                               str(Path(tmp) / "starmap_car")])
+        tf32_off = not (torch.backends.cudnn.allow_tf32
+                        or torch.backends.cuda.matmul.allow_tf32)
+        back, meta = load_pretrained(str(Path(tmp) / "starmap_car"),
+                                     device=dev)
+    im = make_training_batch(np.random.default_rng(7), 8, ts.SIZE)[0]
+    x = torch.as_tensor(np.ascontiguousarray(np.moveaxis(im, -1, 1)),
+                        device=dev)
+    net.eval()
+    with torch.no_grad():
+        same = all(torch.equal(a, b) for a, b in zip(net(x), back(x)))
+    check(tf32_off, "phase 15: the trainer turned cuDNN's TF32 off (set on "
+                    "before)")
+    steps = int(TRAIN_SHORT[1])
+    loss, jax_loss = report["losses"][-1], JAX_TRAIN["short_run"]["loss_199"]
+    check(np.isfinite(report["losses"]).all()
+          and loss <= TRAIN_LOSS_BAND * jax_loss,
+          f"phase 15: train_starmap {' '.join(TRAIN_SHORT)}: loss at step "
+          f"{steps - 1} {loss:.5f} <= {TRAIN_LOSS_BAND} x the JAX package's "
+          f"float32 run's {jax_loss:.5f} (step 0: {report['losses'][0]:.5f}"
+          f", JAX {JAX_TRAIN['short_run']['loss_0']:.5f})")
+    check(same, "phase 15: the trainer's checkpoint read back by "
+                "load_pretrained gives its network's outputs bit for bit "
+                "in eval mode (8 renders)")
+    return {"tf32_off": tf32_off, "loss_first": report["losses"][0],
+            "loss_last": loss, "jax_loss_last": jax_loss,
+            "losses_every_20": report["losses"][::20],
+            "build_s": report["build_s"], "train_s": report["train_s"],
+            "eval": report["eval"], "readback_bit_identical": same,
+            "params": report["params"]}
+
+
+class PoolRoutes:
+    """Stands in for models/starmap.py:max_pool2x2: records each pool's
+    argmax (and, with keep, its input in float64 on the host) in call
+    order, or, given `route` (a list of argmax tensors), takes the inputs
+    that route names instead of the max: the float64 step then makes the
+    card's choices where two inputs of a window tie to within its float32
+    rounding."""
+
+    def __init__(self, route=None, keep=False):
+        self.route, self.keep, self.seen = route, keep, []
+
+    def __call__(self, x):
+        import torch
+        import torch.nn.functional as F
+
+        out, idx = F.max_pool2d_with_indices(x, 2, 2)
+        self.seen.append((idx.cpu(), x.detach().to("cpu", torch.float64,
+                                                   copy=True)
+                          if self.keep else None))
+        if self.route is None:
+            return out
+        i = self.route[len(self.seen) - 1].to(x.device)
+        return torch.gather(x.flatten(2), 2, i.flatten(2)).view(i.shape)
+
+
+def pool_flips(card, f64):
+    """Windows whose argmax differs between two runs' PoolRoutes (card's
+    argmax, f64's argmax and input): per pool, the count and the largest
+    gap between the two inputs in float64, relative to the input's
+    largest magnitude."""
+    import torch
+
+    out = []
+    for n, ((ic, _), (i64, x)) in enumerate(zip(card.seen, f64.seen)):
+        flip = ic != i64
+        if bool(flip.any()):
+            xf = x.flatten(2)
+            a, b = (torch.gather(xf, 2, i.flatten(2)).view(i.shape)[flip]
+                    for i in (ic, i64))
+            out.append({"pool": n, "flips": int(flip.sum()),
+                        "windows": flip.numel(),
+                        "gap_rel": float((b - a).abs().max()
+                                         / x.abs().max())})
+    return out
+
+
+def train_parity(dev):
+    """Phase 15 (a): the first TRAIN_PARITY_STEPS steps of a TRAIN_SCHEDULE
+    schedule from the shipped checkpoint, batch 32 on TRAIN_PARITY_DATASET
+    renders, in float32 on the card and in float64 on the CPU: the losses
+    against each other and JAX's float64 ones (which ran on the port's
+    renders), the running statistics after the first step against the
+    CPU's, and each leaf's first-step gradient against a float64 step that
+    routes each max pool as the card did: where two inputs of a window
+    tie to within float32 rounding, the card's choice can differ from
+    float64's and carry part of the gradient of everything before that
+    pool elsewhere; such windows are counted and each must be a tie
+    (TRAIN_TIE_REL), and the unrouted figure is reported beside."""
+    import torch
+
+    from orcvio_tpu_torch.models import starmap as ps
+    from orcvio_tpu_torch.scripts import train_starmap as ts
+
+    data = ts.build_dataset(TRAIN_PARITY_DATASET)
+    pool = ps.max_pool2x2
+
+    def run(device, dtype, steps, routes):
+        net, _ = ps.load_pretrained(device=device, dtype=dtype)
+        opt = ts.make_optimizer(net, 1e-3, TRAIN_SCHEDULE)
+        losses, grads, stats = [], None, None
+        for i, batch in enumerate(ts.batches(ts.stage(data, device, dtype),
+                                             32, steps, dtype)):
+            ps.max_pool2x2 = routes if i == 0 else pool
+            try:
+                losses.append(ts.train_step(net, opt, *batch))
+            finally:
+                ps.max_pool2x2 = pool
+            if i == 0:
+                grads = {k: p.grad.to("cpu", torch.float64, copy=True)
+                         for k, p in net.named_parameters()}
+                stats = {k: v.to("cpu", torch.float64, copy=True)
+                         for k, v in net.named_buffers()
+                         if k.endswith(("running_mean", "running_var"))}
+        return torch.stack(losses).double().cpu().tolist(), grads, stats
+
+    cpu = torch.device("cpu")
+    seconds, t0 = {}, time.perf_counter()
+    card_pools = PoolRoutes()
+    l32, g32, s32 = run(dev, torch.float32, TRAIN_PARITY_STEPS, card_pools)
+    seconds["card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f64_pools = PoolRoutes(keep=True)
+    l64, g64, s64 = run(cpu, torch.float64, TRAIN_PARITY_STEPS, f64_pools)
+    _, g64r, _ = run(cpu, torch.float64, 1, PoolRoutes(
+        route=[i for i, _ in card_pools.seen]))
+    seconds["cpu_f64"] = time.perf_counter() - t0
+    flips = pool_flips(card_pools, f64_pools)
+    jl = JAX_TRAIN["parity"]["losses_f64"]
+    loss_err = max(rel(a, b) for a, b in zip(l32, l64))
+    loss_err_jax = max(rel(a, b) for a, b in zip(l32, jl))
+    f64_err_jax = max(rel(a, b) for a, b in zip(l64, jl))
+    # leaves whose gradient is zero in exact arithmetic: a per-channel
+    # constant they add is taken out by every train-mode BN downstream
+    top = max(float(g.norm()) for g in g64.values())
+    zero = {k for k, g in g64.items()
+            if float(g.norm()) < TRAIN_ZERO_GRAD * top}
+    grad_err = {k: rel(g32[k], g64r[k]) for k in g64 if k not in zero}
+    raw_err = {k: rel(g32[k], g64[k]) for k in g64 if k not in zero}
+    bn_fed = {k: [float(g32[k].abs().max()), float(g64[k].abs().max())]
+              for k in sorted(zero)}
+    stats_err = {k: rel(s32[k], s64[k]) for k in s64}
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_raw = max(raw_err, key=raw_err.get)
+    worst_s = max(stats_err, key=stats_err.get)
+    check(len(l32) == TRAIN_PARITY_STEPS and loss_err <= TRAIN_LOSS_RTOL
+          and loss_err_jax <= TRAIN_LOSS_RTOL,
+          f"phase 15: {TRAIN_PARITY_STEPS} steps from the shipped checkpoint,"
+          f" float32 on the card: losses within {loss_err:.2e} of float64 "
+          f"on the CPU and {loss_err_jax:.2e} of JAX's float64 <= "
+          f"{TRAIN_LOSS_RTOL} ({', '.join(f'{x:.6f}' for x in l32)})")
+    check(f64_err_jax <= TRAIN_F64_RTOL,
+          f"phase 15: the port's float64 CPU losses within {f64_err_jax:.2e}"
+          f" <= {TRAIN_F64_RTOL} of the JAX package's")
+    check(all(f["gap_rel"] <= TRAIN_TIE_REL for f in flips),
+          f"phase 15: {sum(f['flips'] for f in flips)} max-pool windows of "
+          f"the first step took another input on the card than in float64, "
+          f"each a tie within {TRAIN_TIE_REL} of its input's scale "
+          f"({flips})")
+    check(grad_err[worst_g] <= TRAIN_GRAD_RTOL,
+          f"phase 15: first-step gradients of {len(grad_err)} leaves within "
+          f"{grad_err[worst_g]:.2e} <= {TRAIN_GRAD_RTOL} in relative norm of "
+          f"a float64 step with the card's pool choices (worst {worst_g}; "
+          f"against the float64 step's own choices {raw_err[worst_raw]:.2e}"
+          f", {worst_raw}; {len(bn_fed)} leaves zero but for rounding, all "
+          f"biases, held through the loss: |g| <= "
+          f"{max(v[0] for v in bn_fed.values()):.2e} on the card, "
+          f"{max(v[1] for v in bn_fed.values()):.2e} in float64)")
+    check(all(k.endswith(".bias") for k in zero) and TRAIN_BN_FED_MIN
+          <= len(zero), f"phase 15: the {len(zero)} leaves of zero "
+          f"gradient are biases (at least {TRAIN_BN_FED_MIN}: those that "
+          f"feed a BN directly)")
+    check(stats_err[worst_s] <= TRAIN_STATS_RTOL,
+          f"phase 15: {len(stats_err)} running statistics after the first "
+          f"step within {stats_err[worst_s]:.2e} <= {TRAIN_STATS_RTOL} "
+          f"(worst {worst_s})")
+    return {"losses_card": l32, "losses_cpu_f64": l64, "losses_jax_f64": jl,
+            "loss_rel_err": loss_err, "loss_rel_err_jax": loss_err_jax,
+            "cpu_f64_rel_err_jax": f64_err_jax, "pool_flips": flips,
+            "grad_rel_err_max": grad_err[worst_g], "grad_worst": worst_g,
+            "grad_rel_err_median": float(np.median(list(grad_err.values()))),
+            "grad_rel_err_unrouted_max": raw_err[worst_raw],
+            "grad_unrouted_worst": worst_raw,
+            "zero_grad_leaves_max_abs": bn_fed,
+            "stats_rel_err_max": stats_err[worst_s], "stats_worst": worst_s,
+            "seconds": seconds}
+
+
+def train_eval_shipped(dev):
+    """Phase 15 (c): the shipped checkpoint's evaluation on the trainer's
+    32 renders, on the card, against the JAX package's on the CPU."""
+    from orcvio_tpu_torch.models.starmap import load_pretrained
+    from orcvio_tpu_torch.scripts import train_starmap as ts
+
+    net, meta = load_pretrained(device=dev)
+    ev = ts.evaluate(net)
+    je = JAX_TRAIN["eval_shipped"]
+    check(abs(ev["recall_at_2px"] - je["recall_at_2px"]) <= TRAIN_EVAL_TOL
+          and abs(ev["label_accuracy"] - je["label_accuracy"])
+          <= TRAIN_EVAL_TOL,
+          f"phase 15: the shipped checkpoint's recall@2px "
+          f"{ev['recall_at_2px']:.4f} ({ev['peaks']}) and cvf-label accuracy"
+          f" {ev['label_accuracy']:.4f} ({ev['labels']}) within "
+          f"{TRAIN_EVAL_TOL} of JAX's {je['recall_at_2px']:.4f}, "
+          f"{je['label_accuracy']:.4f} (starmap_car.json's figure, from an "
+          f"unnamed chip: {meta.get('recall_at_2px')})")
+    return {**ev, "jax": je, "json_recall_at_2px": meta.get("recall_at_2px")}
+
+
+def train_timing(dev):
+    """Phase 15 (d): a training step at batch 32 from the shipped
+    checkpoint: ms a step (CUDA events, the median of TRAIN_TIME_STEPS
+    steps, the host's issue included), images/s, then
+    TRAIN_PROFILE_STEPS steps profiled: the device's ms a step, kernels a
+    step, busy share, the share of convolutions in device time."""
+    from orcvio_tpu_torch.models.starmap import load_pretrained
+    from orcvio_tpu_torch.scripts import train_starmap as ts
+
+    net, _ = load_pretrained(device=dev)
+    opt = ts.make_optimizer(net, 1e-3, TRAIN_SCHEDULE)
+    batch = next(ts.batches(ts.stage(ts.build_dataset(32), dev), 32, 1))
+
+    def step():
+        ts.train_step(net, opt, *batch)
+
+    ms = time_ms(step, reps=TRAIN_TIME_STEPS, warmup=3, preload=False)
+    prof = profile_frames(lambda: [step() for _ in range(
+        TRAIN_PROFILE_STEPS)], TRAIN_PROFILE_STEPS, share=TRAIN_CONV_KERNEL)
+    dev_ms = prof["device_ms_per_frame"]
+    out = {"batch": 32, "ms_per_step": ms, "images_per_s": 32e3 / ms,
+           "device_ms_per_step": dev_ms,
+           "kernels_per_step": prof["kernels_per_frame"],
+           "device_busy_share": prof["device_busy_share"],
+           "conv_share_of_device_time": prof.get("share_matching"),
+           "conv_kernels": prof.get("matching"), "top": prof["top"]}
+    check(np.isfinite(ms) and prof["kernels_per_frame"] > 0,
+          f"phase 15: a training step at batch 32 {ms:.3f} ms "
+          f"({out['images_per_s']:.1f} images/s; device {dev_ms:.3f} ms), "
+          f"{prof['kernels_per_frame']:.0f} kernels a step, busy "
+          f"{prof['device_busy_share']:.3f}, convolutions "
+          f"{out['conv_share_of_device_time']:.3f} of device time")
+    return out
+
+
+def training_phase(dev):
+    """Phase 15: StarMap training. (b) first, so that it finds TF32 on,
+    then (a), (c) and (d). K1-K5 launch no time on this path. Returns the
+    report (seconds by part)."""
+    report, seconds = {}, {}
+    launch_counts(reset=True)
+    from orcvio_tpu_torch.ops.lk_pallas import lk_iterate_fused
+    from orcvio_tpu_torch.scripts.race_extract import extract_pallas
+
+    lk_iterate_fused.launches = extract_pallas.launches = 0
+    for name, part in (("short_run", train_short_run),
+                       ("parity", train_parity),
+                       ("eval_shipped", train_eval_shipped),
+                       ("timing", train_timing)):
+        t0 = time.perf_counter()
+        report[name] = part(dev)
+        seconds[name] = time.perf_counter() - t0
+    launches = all_launches()
+    check(not any(launches.values()),
+          f"phase 15: K1-K5 launched no time on the training path "
+          f"({launches})")
+    report["launches"] = launches
+    report["seconds"] = seconds
+    return report
+
+
 def main() -> int:
     t_lap, laps = [time.perf_counter()], {}
 
@@ -3803,6 +4189,13 @@ def main() -> int:
                 kern[f"launches_{mode}"] = eq["launches"][kern["name"]]
 
     lap("14 scale-out")
+    # ---------------- 15. StarMap training ----------------
+    training = training_phase(dev)
+    emit({"starmap_training": training})
+    for kern in kernels:
+        kern["launches_training"] = training["launches"][kern["name"]]
+
+    lap("15 training")
     emit({"phase_seconds": laps, "total_s": sum(laps.values())})
     for kern in kernels:  # None where the library was built before this run
         kern["ptxas"] = ptxas.get(Path(kern["source"]).stem)

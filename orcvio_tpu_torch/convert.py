@@ -9,7 +9,8 @@ converters take that state as numpy arrays (the JAX states read out field
 by field with ``state_to_numpy``) and return the port's, so both packages
 can run onward from the same mid-sequence state. Its one set of weights,
 the StarMap keypoint network's, comes from flax's variables through
-``starmap_state_dict_from_flax``.
+``starmap_state_dict_from_flax`` and goes back to them, for a checkpoint
+the port trained, through ``starmap_flax_from_state_dict``.
 """
 from __future__ import annotations
 
@@ -262,3 +263,49 @@ def starmap_state_dict_from_flax(params: dict, batch_stats: dict,
     if left:
         raise KeyError(f"flax leaves not taken: {left}")
     return sd
+
+
+def _nest(leaves: dict) -> dict:
+    """Nested dicts of {path tuple: array}, each level's keys sorted (the
+    order jax.device_get gives flax's variables, so to_bytes writes):
+    paths taken in sorted order insert each level's keys in order."""
+    out = {}
+    for path in sorted(leaves):
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = leaves[path]
+    return out
+
+
+def starmap_flax_from_state_dict(sd: dict, cfg: dict):
+    """(params, batch_stats), flax's variables of StarMapNet(**cfg) as
+    nested dicts of numpy arrays, from the port's state dict: the inverse
+    of ``starmap_state_dict_from_flax`` (OIHW weights become HWIO kernels;
+    BN's weight, bias, running_mean and running_var its scale, bias, mean
+    and var). Raises unless every weight and statistic is taken exactly
+    once (``num_batches_tracked``, which flax has not, is left)."""
+    params, stats, taken = {}, {}, set()
+
+    def take(name):
+        if name in taken or name not in sd:
+            raise KeyError(f"state dict entry {name} "
+                           f"{'taken twice' if name in taken else 'missing'}")
+        taken.add(name)
+        return sd[name].detach().cpu().numpy()
+
+    for fp, tp, kind in _starmap_modules(cfg):
+        if kind == "conv":
+            params[fp + ("kernel",)] = np.ascontiguousarray(
+                take(f"{tp}.weight").transpose(2, 3, 1, 0))
+            params[fp + ("bias",)] = take(f"{tp}.bias")
+        else:
+            params[fp + ("scale",)] = take(f"{tp}.weight")
+            params[fp + ("bias",)] = take(f"{tp}.bias")
+            stats[fp + ("mean",)] = take(f"{tp}.running_mean")
+            stats[fp + ("var",)] = take(f"{tp}.running_var")
+    left = sorted(k for k in sd if k not in taken
+                  and not k.endswith("num_batches_tracked"))
+    if left:
+        raise KeyError(f"state dict entries not taken: {left}")
+    return _nest(params), _nest(stats)

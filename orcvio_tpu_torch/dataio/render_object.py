@@ -9,8 +9,11 @@ buffer; the keypoints are labelled visible by a depth test. Pure numpy
 on the host, so its images are bit for bit the JAX package's. The
 synthetic object world, the detector's view templates
 (``objects/detector.py``) and config B's composite frames
-(``eval/object_map_cnn.py``) use it. The training batches
-(``make_training_batch``) are not part of the port.
+(``eval/object_map_cnn.py``) use it, and so do the training batches
+(``make_training_batch``) that ``scripts/train_starmap.py`` trains the
+StarMap network on. Their blur augment resizes as ``cv2.resize`` does,
+with two numpy functions of this module in its place: ``area_resize``
+(``INTER_AREA``, downscaling) and ``linear_resize`` (``INTER_LINEAR``).
 """
 from __future__ import annotations
 
@@ -224,3 +227,131 @@ def random_view(rng, size: int = 96, dist_range=(4.5, 9.0),
     f = size * d / rng.uniform(4.2, 7.5)
     K = (f, f, size / 2 + rng.normal(0, 2), size / 2 + rng.normal(0, 2))
     return R_w2c, cam, K
+
+
+def _area_weights(n_src: int, n_dst: int) -> np.ndarray:
+    """(n_dst, n_src) float32 weights of cv2's INTER_AREA downscale along
+    one axis (imgproc/resize.cpp: computeResizeAreaTab): each output cell
+    averages the source interval [d scale, (d + 1) scale), a partial
+    pixel at either end by its covered share, over the cell's width."""
+    scale = 1.0 / (n_dst / n_src)
+    w = np.zeros((n_dst, n_src), np.float32)
+    for d in range(n_dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_src - f1)
+        s2 = min(int(np.floor(f2)), n_src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            w[d, s1 - 1] = np.float32((s1 - f1) / cell)
+        w[d, s1:s2] = np.float32(1.0 / cell)
+        if f2 - s2 > 1e-3:
+            w[d, s2] = np.float32(min(min(f2 - s2, 1.0), cell) / cell)
+    return w
+
+
+def area_resize(img: np.ndarray, size: int) -> np.ndarray:
+    """cv2.resize(img, (size, size), interpolation=cv2.INTER_AREA) of a
+    square float32 image (H, H), size < H: each output pixel the
+    area-weighted mean of the source pixels its cell covers, the ratio
+    not an integer. Sums in float32, rows of the source first."""
+    w = _area_weights(img.shape[0], size)
+    rows = np.einsum("ij,yj->yi", w, img.astype(np.float32))
+    return np.einsum("ij,jx->ix", w, rows).astype(np.float32)
+
+
+def _linear_taps(n_src: int, n_dst: int):
+    """(left index, right index, right weight) of cv2's INTER_LINEAR along
+    one axis of an image of more than one row and column: source
+    coordinate (d + 0.5) scale - 0.5 in float64, its fraction rounded to
+    float32 (the left weight is 1 - that, in float32), indices clamped at
+    the borders (a weight of 0 past either edge)."""
+    scale = 1.0 / (n_dst / n_src)
+    fx = (np.arange(n_dst) + 0.5) * scale - 0.5
+    sx = np.floor(fx).astype(np.int64)
+    fx = (fx - sx).astype(np.float32)
+    fx[(sx < 0) | (sx >= n_src - 1)] = 0.0
+    sx = np.clip(sx, 0, n_src - 1)
+    return sx, np.minimum(sx + 1, n_src - 1), fx
+
+
+def linear_resize(img: np.ndarray, size: int) -> np.ndarray:
+    """cv2.resize(img, (size, size), interpolation=cv2.INTER_LINEAR) of a
+    square float32 image: bilinear, the rows first, then the columns, in
+    float32."""
+    lo, hi, f = _linear_taps(img.shape[0], size)
+    img = img.astype(np.float32)
+    one = np.float32(1.0)
+    rows = img[:, lo] * (one - f) + img[:, hi] * f
+    return (rows[lo] * (one - f)[:, None] + rows[hi] * f[:, None]).astype(
+        np.float32)
+
+
+def make_training_batch(rng, batch: int, size: int = 96, heat_sigma=1.0,
+                        clutter: bool = True, blur_augment: bool = True):
+    """(images (B, S, S, 3), targets (B, S/4, S/4, 5), masks (B, S/4, S/4,
+    1)), NHWC float32, drawn from the numpy Generator `rng` in the JAX
+    package's order, so one seed gives the same scenes.
+
+    Target channels: [heat, cvf_x, cvf_y, cvf_z, depth_norm]; cvf and
+    depth are supervised only where mask > 0 (the keypoint neighbourhoods);
+    depth is relative to the camera's distance to the car's centre.
+    ``clutter`` paints distractor quads and (a third of the time) a second
+    car, unlabeled, under the target; ``blur_augment`` (60 %) downscales
+    to s in [30, S) with ``area_resize`` and back with ``linear_resize``,
+    then adds noise: the deployment crops of far cars, upscaled.
+    """
+    S = size
+    Hh = S // 4
+    imgs = np.empty((batch, S, S), np.float32)
+    heats = np.zeros((batch, Hh, Hh), np.float32)
+    cvf = np.zeros((batch, Hh, Hh, 3), np.float32)
+    dep = np.zeros((batch, Hh, Hh), np.float32)
+    mask = np.zeros((batch, Hh, Hh), np.float32)
+    yy, xx = np.meshgrid(np.arange(Hh), np.arange(Hh), indexing="ij")
+
+    for b in range(batch):
+        R_w2c, cam, K = random_view(rng, S)
+        bg = rng.uniform(0.15, 0.75) + rng.normal(0, 0.05, (S, S))
+        bg = bg.astype(np.float32)
+        if clutter:
+            for _ in range(rng.integers(0, 4)):
+                w = rng.integers(4, S // 2)
+                h = rng.integers(4, S // 2)
+                x = rng.integers(0, S - 4)
+                y = rng.integers(0, S - 4)
+                bg[y:y + h, x:x + w] = np.clip(
+                    bg[y:y + h, x:x + w] + rng.uniform(-0.35, 0.35), 0, 1)
+            if rng.uniform() < 0.35:
+                R2, cam2, _ = random_view(rng, S)
+                cam2 = cam2 + rng.normal(0, 2.0, 3)
+                r2 = render_car(R2, cam2, K, S, albedo=rng.uniform(0.35, 0.85),
+                                background=bg, rng=rng)
+                bg = np.asarray(r2.image)
+        r = render_car(R_w2c, cam, K, S,
+                       albedo=rng.uniform(0.35, 0.85),
+                       light=rng.normal(0, 1, 3) + np.array([0, 0, 1.5]),
+                       background=bg, rng=rng)
+        im = np.asarray(r.image)
+        if blur_augment and rng.uniform() < 0.6:
+            s = int(rng.integers(30, S))
+            im = linear_resize(area_resize(im, s), S)
+            im = np.clip(im + rng.normal(0, rng.uniform(0.005, 0.03),
+                                         im.shape), 0, 1).astype(np.float32)
+        imgs[b] = im
+        d0 = np.linalg.norm(cam - np.array([0.0, 0.0, 0.7]))
+        for k in range(N_KEYPOINTS):
+            if not r.kp_visible[k]:
+                continue
+            u, v = r.kp_uv[k] / 4.0
+            g = np.exp(-((xx - u) ** 2 + (yy - v) ** 2) / (2 * heat_sigma**2))
+            heats[b] = np.maximum(heats[b], g)
+            sel = g > 0.2
+            cvf[b][sel] = CAR_KEYPOINTS[k]
+            dep[b][sel] = r.kp_depth[k] / d0
+            mask[b] = np.maximum(mask[b], sel.astype(np.float32))
+
+    images = np.repeat(imgs[..., None], 3, axis=-1)
+    targets = np.concatenate(
+        [heats[..., None], cvf, dep[..., None]], axis=-1)
+    return images, targets, mask[..., None]

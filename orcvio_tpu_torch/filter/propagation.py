@@ -146,6 +146,20 @@ def _rk4_increments(R_pre, R_post, gyro, acc, dt, g_w):
     return dv, dp_extra
 
 
+def propagate_mean_rk4(imu: ImuState, gyro, acc, dt, g_w) -> ImuState:
+    """LARVIO's RK4 mean over one constant sample: gyro, acc (3,), dt a
+    number or a 0-d tensor. Ref: predictNewStateLARVIO (orcvio.cpp:825),
+    on rotation matrices with the exact half- and full-step attitudes.
+
+    R' = R exp(dt w), v' = v + dv, p' = p + v dt + dp (_rk4_increments)
+    """
+    dt = torch.as_tensor(dt, dtype=imu.R.dtype, device=imu.R.device)
+    R = imu.R @ so3.exp(dt * gyro)
+    dv, dp = _rk4_increments(imu.R[None], R[None], gyro[None], acc[None],
+                             dt.reshape(1), g_w)
+    return imu.replace(R=R, v=imu.v + dv[0], p=imu.p + dt * imu.v + dp[0])
+
+
 def _mean_increments(cfg: FilterConfig, R_pre, R_post, gyro, acc, dt, g_w):
     """(dv, dp - v dt) of the configured mean: RK4 or the SE(3) closed
     form."""
@@ -407,3 +421,20 @@ def imu_batch(cfg: FilterConfig, state: FilterState, imu_t, imu_gyro, imu_acc,
         cfg, state, imu_t, imu_gyro, imu_acc, imu_mask)
     state2 = apply_leg_covariance(state2, Phi, Q, S, cfg.intrinsic_base)
     return state2.replace(last_gyro=g_last, last_acc=a_last)
+
+
+def process_step(cfg: FilterConfig, state: FilterState, t_imu, gyro_m, acc_m,
+                 gyro_m_old, acc_m_old) -> FilterState:
+    """One IMU sample, mean and covariance, with the previous sample's
+    (gyro_m_old, acc_m_old) given. Ref: processModel (orcvio.cpp:727).
+    The slab of one sample: ``imu_batch_transition`` then
+    ``apply_leg_covariance``; last_gyro and last_acc are left as they
+    were. At t_imu == state.t it is an exact no-op."""
+    dtype, dev = state.P.dtype, state.P.device
+    t = torch.as_tensor(t_imu, dtype=state.t.dtype, device=dev).reshape(1)
+    prev = state.replace(last_gyro=gyro_m_old, last_acc=acc_m_old)
+    state2, Phi, Q, S, _, _ = imu_batch_transition(
+        cfg, prev, t, gyro_m.to(dtype)[None], acc_m.to(dtype)[None],
+        torch.ones(1, dtype=torch.bool, device=dev))
+    state2 = apply_leg_covariance(state2, Phi, Q, S, cfg.intrinsic_base)
+    return state2.replace(last_gyro=state.last_gyro, last_acc=state.last_acc)

@@ -1,7 +1,7 @@
 """Hamilton quaternions, [x, y, z, w] layout, batched.
 
 Counterpart of ``orcvio_tpu/math/quat.py`` (reference:
-math_utils.hpp:68-226): what the filter uses. ``from_rotation`` is
+math_utils.hpp:68-226), every function of it. ``from_rotation`` is
 Shepperd's method with the four candidates computed and one picked by the
 largest pivot, as in the JAX package.
 """
@@ -30,6 +30,18 @@ def multiply(q1, q2):
 def inverse(q):
     """Conjugate of a unit quaternion. Ref: math_utils.hpp:278."""
     return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def from_small_angle(dtheta):
+    """Small-angle rotation vector -> unit quaternion (..., 4). Ref:
+    math_utils.hpp:104: w = sqrt(1 - |dtheta/2|^2) while that is real,
+    else [dtheta/2, 1] normalized."""
+    dq = dtheta * 0.5
+    n2 = torch.sum(dq * dq, dim=-1, keepdim=True)
+    q_small = torch.cat([dq, torch.sqrt(torch.clamp(1.0 - n2, min=0.0))],
+                        dim=-1)
+    q_big = torch.cat([dq, torch.ones_like(n2)], dim=-1) / torch.sqrt(1.0 + n2)
+    return torch.where(n2 <= 1.0, q_small, q_big)
 
 
 def to_rotation(q):

@@ -9,15 +9,19 @@ peak extraction of ``parse_keypoints_from_heatmap`` at heat threshold 0.3,
 network gives 5 channels a stack: the visibility heatmap, the canonical
 view feature xyz and depth.
 
-The layout is NCHW and the network runs in eval mode: batch norm uses its
-running statistics with flax's eps (1e-5). The stem's 7x7 stride-2 "SAME"
-convolution pads as XLA does, (2, 3) at 96 px; every other convolution is
-1x1 or 3x3 at stride 1, the pools are 2x2 VALID and the upsample is an
-exact 2x repeat. The shipped checkpoint is the JAX package's flax file
-(``orcvio_tpu/models/weights/starmap_car.*``), read by path with
-``flax_msgpack.restore`` and renamed by ``convert.py:
-starmap_state_dict_from_flax``. Training (BN in train mode, the loss) is
-not part of the port.
+The layout is NCHW. In eval mode batch norm uses its running statistics
+with flax's eps (1e-5); in train mode (``BatchNorm``) it normalizes by
+the batch's statistics as flax computes them and updates the running
+ones in the forward pass, as ``mutable=["batch_stats"]`` does. The
+stem's 7x7 stride-2 "SAME" convolution pads as XLA does, (2, 3) at 96
+px; every other convolution is 1x1 or 3x3 at stride 1, the pools are 2x2
+VALID and the upsample is an exact 2x repeat. The shipped checkpoint is
+the JAX package's flax file (``orcvio_tpu/models/weights/
+starmap_car.*``), read by path with ``flax_msgpack.restore`` and renamed
+by ``convert.py:starmap_state_dict_from_flax``. Training
+(``scripts/train_starmap.py``) starts from ``init_like_flax`` and
+minimizes ``train_loss``, the loss the JAX package's trainer minimizes;
+``heatmap_loss`` is the JAX package's plain intermediate-supervision MSE.
 
 The post-processing works on a batch of heatmaps (..., H, W). Ties among
 the top-k scores go to the lower flat index, as ``jax.lax.top_k``'s do;
@@ -36,12 +40,42 @@ from .. import no_tf32, resolve_device
 
 HEAT_THRESH = 0.3  # starmap.cpp:622
 BN_EPS = 1e-5  # flax.linen.BatchNorm's default
+BN_MOMENTUM = 0.99  # flax's: running = 0.99 running + 0.01 batch
+LECUN_STD = 0.87962566103423978  # std of a unit normal truncated at +-2
 WEIGHTS = (Path(__file__).resolve().parents[2] / "orcvio_tpu" / "models"
            / "weights" / "starmap_car")
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+class BatchNorm(nn.BatchNorm2d):
+    """flax.linen.BatchNorm over the channels of NCHW, under torch's names
+    (weight, bias, running_mean, running_var). Eval mode is torch's. Train
+    mode is flax's (use_fast_variance): the batch variance E[x^2] -
+    E[x]^2, clipped at 0 and biased, normalizes the batch and feeds the
+    running variance, running = 0.99 running + 0.01 batch, updated in the
+    forward pass (torch's own train mode stores the unbiased variance)."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean((0, 2, 3))
+        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            for run, batch in ((self.running_mean, mean),
+                               (self.running_var, var)):
+                run.copy_(BN_MOMENTUM * run + (1 - BN_MOMENTUM) * batch)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
+def max_pool2x2(x):
+    """The network's 2x2 stride-2 VALID max pool, looked up by name at each
+    call, so that a check can record which input each window takes (or
+    set it: the training check of chip_smoke.py's phase 15)."""
+    return F.max_pool2d(x, 2, 2)
 
 
 class Residual(nn.Module):
@@ -51,10 +85,10 @@ class Residual(nn.Module):
     def __init__(self, c_in: int, features: int):
         super().__init__()
         f = features
-        self.bn0, self.conv0 = _bn(c_in), nn.Conv2d(c_in, f // 2, 1)
-        self.bn1 = _bn(f // 2)
+        self.bn0, self.conv0 = BatchNorm(c_in), nn.Conv2d(c_in, f // 2, 1)
+        self.bn1 = BatchNorm(f // 2)
         self.conv1 = nn.Conv2d(f // 2, f // 2, 3, padding=1)
-        self.bn2, self.conv2 = _bn(f // 2), nn.Conv2d(f // 2, f, 1)
+        self.bn2, self.conv2 = BatchNorm(f // 2), nn.Conv2d(f // 2, f, 1)
         self.skip = nn.Conv2d(c_in, f, 1) if c_in != f else None
 
     def forward(self, x):
@@ -83,7 +117,7 @@ class Hourglass(nn.Module):
         up1 = x
         for m in self.up1:
             up1 = m(up1)
-        low = F.max_pool2d(x, 2, 2)
+        low = max_pool2x2(x)
         for m in self.low1:
             low = m(low)
         if self.depth > 1:
@@ -107,7 +141,7 @@ class Stack(nn.Module):
         f = features
         self.hg = Hourglass(depth, f, n_modules)
         self.res = nn.ModuleList(Residual(f, f) for _ in range(n_modules))
-        self.lin, self.bn = nn.Conv2d(f, f, 1), _bn(f)
+        self.lin, self.bn = nn.Conv2d(f, f, 1), BatchNorm(f)
         self.out = nn.Conv2d(f, n_out, 1)
         self.ll_ = None if last else nn.Conv2d(f, f, 1)
         self.out_ = None if last else nn.Conv2d(n_out, f, 1)
@@ -138,7 +172,7 @@ class StarMapNet(nn.Module):
                  hg_depth: int = 4, n_modules: int = 1):
         super().__init__()
         self.stem = nn.Conv2d(3, 64, 7, stride=2)
-        self.stem_bn = _bn(64)
+        self.stem_bn = BatchNorm(64)
         self.res0 = Residual(64, 128)
         self.res1 = Residual(128, 128)
         self.res2 = Residual(128, n_feats)
@@ -150,12 +184,63 @@ class StarMapNet(nn.Module):
         py, px = (same_pad(s, 7, 2) for s in x.shape[-2:])
         x = self.stem(F.pad(x, (*px, *py)))
         x = self.res0(F.relu(self.stem_bn(x)))
-        x = self.res2(self.res1(F.max_pool2d(x, 2, 2)))
+        x = self.res2(self.res1(max_pool2x2(x)))
         outs = []
         for s in self.stacks:
             tmp, x = s(x)
             outs.append(tmp)
         return outs
+
+
+def init_like_flax(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialize `net` in place as flax initializes StarMapNet: each
+    convolution's weight lecun_normal (a normal truncated at +-2 sigma,
+    sigma = sqrt(1 / fan_in) / 0.8796, fan_in = kh kw c_in), its bias 0;
+    batch norm's scale 1, bias 0, running mean 0 and variance 1. Drawn on
+    the CPU from `generator` (a CPU torch.Generator), so one seed gives
+    one init on every device. Returns `net`."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, nn.Conv2d):
+                o, i, kh, kw = m.weight.shape
+                std = (1.0 / (i * kh * kw)) ** 0.5 / LECUN_STD
+                w = torch.empty(m.weight.shape, dtype=torch.float64)
+                torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                            generator=generator)
+                m.weight.copy_(w * std)
+                m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+    return net
+
+
+def heatmap_loss(outs, target):
+    """The intermediate-supervision MSE over all stacks: outs a list of
+    (B, C, H, W), target (B, C, H, W)."""
+    loss = 0.0
+    for o in outs:
+        loss = loss + torch.mean((o - target) ** 2)
+    return loss / len(outs)
+
+
+def train_loss(outs, target, mask):
+    """The loss the trainer minimizes (the JAX package's
+    scripts/train_starmap.py:82-107), averaged over the stacks: BCE with
+    logits on the heatmap, max(h, 0) - h t + log1p(exp(-|h|)), plus the
+    cvf squared error and 0.3 x the depth's, both masked to the keypoint
+    neighbourhoods and divided by max(sum mask, 1) (x 3 for cvf's three
+    channels). outs a list of (B, 5, H, W), target (B, 5, H, W), mask (B,
+    1, H, W)."""
+    n = torch.clamp(mask.sum(), min=1.0)
+    loss = 0.0
+    for o in outs:
+        h = o[:, 0]
+        l_heat = torch.mean(torch.clamp(h, min=0) - h * target[:, 0]
+                            + torch.log1p(torch.exp(-h.abs())))
+        l_cvf = torch.sum(mask * (o[:, 1:4] - target[:, 1:4]) ** 2) / (n * 3)
+        l_dep = torch.sum(mask[:, 0] * (o[:, 4] - target[:, 4]) ** 2) / n
+        loss = loss + l_heat + 1.0 * l_cvf + 0.3 * l_dep
+    return loss / len(outs)
 
 
 # ---------------------------------------------------------------------------

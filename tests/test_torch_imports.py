@@ -1,18 +1,20 @@
 """The port's boundaries: no JAX, no reference package, no silent CPU runs.
 
-* No module of orcvio_tpu_torch, nor chip_smoke.py, imports jax, flax or
-  orcvio_tpu (by name or as a dotted submodule), nor cv2, yaml, PIL or
-  imageio, which the card's machine does not have.
+* No module of orcvio_tpu_torch, nor chip_smoke.py, imports jax, flax,
+  optax or orcvio_tpu (by name or as a dotted submodule), nor cv2, yaml,
+  PIL or imageio, which the card's machine does not have.
 * Importing the whole port leaves jax out of sys.modules.
 * Entry points without device= run on CUDA, and raise where there is none
   (the batched replay, parallel/'s mesh and the object layer's
   orchestrator, staged replay and config-A run too, and the image path's
-  detector, network loader, config-B run and StarMap bench, the scaling
-  harness, the batch evaluator and the NEES Monte-Carlo).
+  detector, network loader, config-B run and StarMap bench, the StarMap
+  trainer, the scaling harness, the batch evaluator and the NEES
+  Monte-Carlo).
 * Each object entry point turns cuDNN's TF32 off before its first op, and
   so does each scale-out and tooling entry point (the sequence- and
-  feature-parallel updates, the scaling harness, the batch evaluator);
-  matplotlib is imported only inside the plotting functions.
+  feature-parallel updates, the scaling harness, the batch evaluator),
+  and so does the StarMap trainer; matplotlib is imported only inside the
+  plotting functions.
 * Every filter flag runs: the IMU intrinsics and Schmidt flags build a
   filter state, a frame and a replay on the CPU.
 * Kernel wrappers given CPU tensors take the plain versions: their launch
@@ -53,7 +55,8 @@ from orcvio_tpu_torch.vio import VioState
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "orcvio_tpu", "cv2", "yaml", "PIL", "imageio")
+FORBIDDEN = ("jax", "flax", "optax", "orcvio_tpu", "cv2", "yaml", "PIL",
+             "imageio")
 PORT_FILES = sorted((ROOT / "orcvio_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -92,7 +95,7 @@ def test_port_import_leaves_jax_unloaded():
                 "parallel.temporal", "parallel.multihost", "eval.scaling",
                 "eval.batch", "eval.plots", "utils.checkpoint",
                 "utils.profiling", "scripts.multihost_scaling",
-                "scripts.nees_mc"):
+                "scripts.nees_mc", "scripts.train_starmap"):
         assert f"orcvio_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
@@ -252,7 +255,7 @@ def test_image_path_entry_points_need_a_device():
     from orcvio_tpu_torch.eval.object_map_cnn import run_cnn_object_mapping
     from orcvio_tpu_torch.models.starmap import load_pretrained
     from orcvio_tpu_torch.objects.detector import StarMapKeypointDetector
-    from orcvio_tpu_torch.scripts import starmap_bench
+    from orcvio_tpu_torch.scripts import starmap_bench, train_starmap
 
     K = (220.0, 220.0, 120.0, 120.0)
     if torch.cuda.is_available():
@@ -267,6 +270,8 @@ def test_image_path_entry_points_need_a_device():
         run_cnn_object_mapping(quick=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         starmap_bench.run(frames=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_starmap.main(["--steps", "1", "--dataset", "1"])
 
 
 class _Stop(Exception):
@@ -311,6 +316,20 @@ def test_object_entry_points_turn_tf32_off(entry, monkeypatch):
         calls[entry]()
     except _Stop:
         pass
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_trainer_turns_tf32_off(monkeypatch):
+    """The StarMap trainer turns TF32 off before its first op (stopped as
+    it starts to build its dataset)."""
+    from orcvio_tpu_torch.scripts import train_starmap
+
+    monkeypatch.setattr(train_starmap, "build_dataset", _stop)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(_Stop):
+        train_starmap.main(["--device", "cpu"])
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
 
