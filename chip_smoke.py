@@ -865,9 +865,10 @@ def ptxas_usage(log):
     return out
 
 
-# device-side ranges the profiler adds around an optimizer's step: they
+# device-side ranges the profiler adds around an optimizer's step and
+# around the port's stage spans (utils/profiling.py:SPAN_PREFIX): they
 # span kernels that are counted on their own
-ANNOTATIONS = ("Optimizer.",)
+ANNOTATIONS = ("Optimizer.", "orcvio::")
 
 
 def device_rows(prof, averages=False):

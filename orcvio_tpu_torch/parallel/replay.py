@@ -18,6 +18,7 @@ import torch.utils._pytree as pytree
 from ..config.core import FilterConfig
 from ..filter.pipeline import FrameOutput, filter_step
 from ..tree import tree_map
+from ..utils.profiling import span
 
 
 def make_mesh(n_devices=None):
@@ -67,25 +68,33 @@ def sharded_replay_fn(cfg: FilterConfig, mesh):
     table. Each device runs its chunk's frames in order through
     ``batched_step``; the devices' launches interleave frame by frame, so
     several cards run at once. Returns the final states (B, ...) and
-    FrameOutput of (B, T, ...) tensors on mesh[0]."""
+    FrameOutput of (B, T, ...) tensors on mesh[0]. A call runs in the span
+    ``replay.call`` (``utils/profiling.py:span``), which holds
+    ``replay.shard``, a ``replay.step`` for each chunk's frame (the
+    filter's stage spans inside) and ``replay.gather``; the frames'
+    slicing lies in the call's own time."""
     step = batched_step(cfg)
 
     def replay(states, frames, chi2):
-        st = shard_batch(states, mesh)
-        fr = shard_batch(frames, mesh)
-        tables = [chi2.to(chunk.P.device) for chunk in st]
-        outs = [[] for _ in st]
-        for k in range(frames.t.shape[1]):
-            for i, tab in enumerate(tables):
-                st[i], out = step(st[i], tree_map(lambda x: x[:, k], fr[i]),
-                                  tab)
-                outs[i].append(out)
-        outs = [FrameOutput(*(torch.stack(x, 1) for x in zip(*o)))
-                for o in outs]
+        with span("replay.call"):
+            with span("replay.shard"):
+                st = shard_batch(states, mesh)
+                fr = shard_batch(frames, mesh)
+                tables = [chi2.to(chunk.P.device) for chunk in st]
+            outs = [[] for _ in st]
+            for k in range(frames.t.shape[1]):
+                for i, tab in enumerate(tables):
+                    frame = tree_map(lambda x: x[:, k], fr[i])
+                    with span("replay.step"):
+                        st[i], out = step(st[i], frame, tab)
+                    outs[i].append(out)
+            with span("replay.gather"):
+                outs = [FrameOutput(*(torch.stack(x, 1) for x in zip(*o)))
+                        for o in outs]
 
-        def gather(*xs):
-            return torch.cat([x.to(mesh[0]) for x in xs])
+                def gather(*xs):
+                    return torch.cat([x.to(mesh[0]) for x in xs])
 
-        return tree_map(gather, *st), tree_map(gather, *outs)
+                return tree_map(gather, *st), tree_map(gather, *outs)
 
     return replay

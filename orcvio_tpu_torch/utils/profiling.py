@@ -2,9 +2,9 @@
 
 Counterpart of ``orcvio_tpu/utils/profiling.py`` (the reference times its
 loop with cv::getTickCount, app/orcvioMain.cpp:131-182): a
-``torch.profiler`` trace written as a Chrome trace, a stage timer that
-waits for the card where a stage's output lives there, and the online
-RMSE/NEES accumulators of the reference's System.
+``torch.profiler`` trace written as a Chrome trace, the named spans the
+main path marks its stages with, and the online RMSE/NEES accumulators of
+the reference's System.
 """
 from __future__ import annotations
 
@@ -12,11 +12,13 @@ import contextlib
 import math
 import os
 import time
-from collections import defaultdict
 
 import numpy as np
 import torch
-import torch.utils._pytree as pytree
+from torch.autograd.profiler import record_function
+
+SPAN_PREFIX = "orcvio::"
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -43,46 +45,21 @@ def trace(logdir: str):
         prof.export_chrome_trace(prof.path)
 
 
-def _on_cuda(tree) -> bool:
-    return any(isinstance(x, torch.Tensor) and x.is_cuda
-               for x in pytree.tree_leaves(tree))
+def span(name: str):
+    """A profiler range named ``orcvio::<name>`` around a stage, while
+    torch's profiler runs (``trace`` above, or any torch.profiler.profile);
+    otherwise a shared no-op context manager, so a span that is off costs
+    one check of a C-level flag. The range lies on the profiler's own
+    timeline, the clock its device events are converted to, and is kept in
+    the profiler's memory like its other events. Under torch.func.vmap one
+    range is recorded per call, not per row.
 
-
-class StageTimer:
-    """Wall-clock seconds per named stage. A stage that puts its output in
-    box["out"] is timed to that output's completion: where it holds CUDA
-    tensors, the card is synchronized first.
-
-    >>> t = StageTimer()
-    >>> with t.stage("frontend") as box:
-    ...     box["out"] = track(...)
-    >>> t.report()
+    >>> with span("filter.update"):
+    ...     state, dx = msckf_update(cfg, state, fj, use_k)
     """
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        box = {}
-        try:
-            yield box
-        finally:
-            if "out" in box and _on_cuda(box["out"]):
-                torch.cuda.synchronize()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=lambda n: -self.totals[n]):
-            n = self.counts[name]
-            tot = self.totals[name]
-            lines.append(f"{name:20s} {tot:8.3f}s total  "
-                         f"{tot / max(n, 1) * 1e3:8.2f} ms/call  x{n}")
-        return "\n".join(lines)
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return record_function(SPAN_PREFIX + name)
 
 
 class OnlineMetrics:

@@ -1,11 +1,12 @@
 """The port's tooling (utils/checkpoint.py, utils/profiling.py,
 eval/batch.py, eval/plots.py) against the JAX package's.
 
-* tests/test_aux.py's checkpoint, StageTimer and OnlineMetrics cases on
-  the port, OnlineMetrics equal to the JAX package's on the same inputs;
+* tests/test_aux.py's checkpoint and OnlineMetrics cases on the port,
+  OnlineMetrics equal to the JAX package's on the same inputs;
   a replay resumed from a checkpoint equal bit for bit to the
   uninterrupted one;
-* trace writes a Chrome trace; the plots write PNGs;
+* trace writes a Chrome trace that holds a filter step's stage
+  spans; the plots write PNGs;
 * markdown_table gives the JAX package's string on the same results;
 * run_synthetic_batch_vmap against run_synthetic_case and against the
   JAX package's run_synthetic_case, float64, at
@@ -22,10 +23,12 @@ import pytest
 import torch
 
 from orcvio_tpu_torch.config.core import FilterConfig
+from orcvio_tpu_torch.filter.pipeline import (FrameInput, build_chi2_table,
+                                              filter_step)
 from orcvio_tpu_torch.filter.state import FilterState
 from orcvio_tpu_torch.utils.checkpoint import (latest_step, restore_state,
                                                save_state)
-from orcvio_tpu_torch.utils.profiling import OnlineMetrics, StageTimer, trace
+from orcvio_tpu_torch.utils.profiling import OnlineMetrics, trace
 
 torch.set_num_threads(1)
 
@@ -58,7 +61,7 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_resumed_replay_is_bit_identical(tmp_path):
     from orcvio_tpu_torch.dataio.synthetic import SimConfig, initialized_run
-    from orcvio_tpu_torch.filter.pipeline import FrameInput, run_sequence
+    from orcvio_tpu_torch.filter.pipeline import run_sequence
 
     cfg = FilterConfig(**{**BASE, "sw_size": 6, "max_features": 40})
     st, frames, chi2 = initialized_run(
@@ -75,16 +78,6 @@ def test_resumed_replay_is_bit_identical(tmp_path):
     assert torch.equal(end2.P, end.P) and torch.equal(end2.imu.p, end.imu.p)
     assert torch.equal(outs2.p, outs.p[8:])
     assert int(outs.n_update_features.sum()) > 0
-
-
-def test_stage_timer():
-    t = StageTimer()
-    with t.stage("a") as box:
-        box["out"] = torch.ones(10) * 2
-    with t.stage("a") as box:
-        box["out"] = {"x": torch.ones(10) * 3}
-    rep = t.report()
-    assert "a" in rep and "x2" in rep and t.counts["a"] == 2
 
 
 def _metric_inputs():
@@ -119,11 +112,25 @@ def test_online_metrics_match_jax(tmp_path):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    cfg = FilterConfig(sw_size=4, max_features=8, imu_slab=4)
+    st = FilterState.create(cfg, torch.float64, device="cpu")
+    S, M = cfg.imu_slab, 8
+    z = lambda *shape: torch.zeros(*shape, dtype=torch.float64)  # noqa: E731
+    frame = FrameInput(t=z(()), imu_t=z(S), imu_gyro=z(S, 3),
+                       imu_acc=z(S, 3), imu_mask=torch.zeros(S, dtype=bool),
+                       fids=torch.full((M,), -1, dtype=torch.int32),
+                       uvs=z(M, 2), uv_vels=z(M, 2),
+                       meas_mask=torch.zeros(M, dtype=bool))
+    chi2 = build_chi2_table(cfg, torch.float64, device="cpu")
     with trace(str(tmp_path)) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        filter_step(cfg, st, frame, chi2)
     assert os.path.getsize(prof.path) > 0
     with open(prof.path) as f:
-        assert "traceEvents" in json.load(f)
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    for stage in ("propagate", "augment", "ingest", "zupt", "classify",
+                  "triangulate", "jacobians", "update", "select",
+                  "last_chance", "prune"):
+        assert f"orcvio::filter.{stage}" in names
 
 
 def test_plots_write_pngs(tmp_path):
