@@ -35,9 +35,9 @@ Phases:
     sequence as the EuRoC writer makes it in memory, rendered on the card
     (300 frames, 60 of them static): init,
     finite poses, the ATE against the JAX package's on the same stream,
-    the launch count of every kernel; ms/frame over 1 replay of 100
-    frames after init (38 at standstill, 62 of flight); 20 of them under
-    sync debug mode; 10 of them profiled;
+    the launch count of every kernel (K6's inputs kept for phase 16);
+    ms/frame over 1 replay of 100 frames after init (38 at standstill, 62
+    of flight); 20 of them under sync debug mode; 10 of them profiled;
  6. K4 against its plain version on the (P, K, H) the replay gave it (the
     stacked, last-chance and ZUPT updates) and on random (172, 444)
     inputs in float32 and float64, within the rounding bound and exactly
@@ -191,7 +191,24 @@ Phases:
     renders within 0.03 of the JAX package's; (d) ms a training step
     (CUDA events, the median of 20), images/s, kernels a step, the
     device's busy share and the share of its time in convolution
-    kernels; K1-K5 launched no time on this path.
+    kernels; K1-K6 launched no time on this path;
+16. K6 (the triangulation's Levenberg-Marquardt loop) against its plain
+    version under torch.func.vmap, one launch a batch: on the inputs
+    phase 5's replay gave it (every filter frame's stacked and last-chance
+    calls as rows), in float32 as the replay ran and widened to float64;
+    at the object path's shape (T = 32, a prior point partly NaN and
+    partly behind the camera) and the fleet cell's (1024 rows of 32
+    tracks of 6 observations in a window of 20, tests/tri_cases.py's
+    seeded tracks), float32 and float64: valid, anchor_slot and which
+    outputs are finite identical, the valid features within the card
+    tests' tolerances (1e-5 in float32; 10 sqrt(u) in float64 on noisy
+    tracks for 99 % of them, with the costs at the two answers within
+    1e-8 for all, since at the static start the cost hardly sees depth);
+    its times at a replay frame's shape, at the frames' batch
+    and at the fleet's, beside its bound (operations, k6_ops) and the
+    plain version's time, kernels and device time a call. K6 launches
+    twice a filter frame (once where the last-chance update is off),
+    checked in phases 5, 9, 10 and 11.
 
 Then the seconds each phase took.
 
@@ -1053,6 +1070,144 @@ def k4_times(P, K, H, nb=None):
     return out
 
 
+def k6_ops(mask, iters, prior=False):
+    """Operations K6's function needs on tracks with this mask (..., F, T),
+    a division or square root counted as one: a valid observation 63 once
+    for its pose relative to the anchor, 26 for each of the iters + 1
+    costs it enters, 85 a step for its Jacobian, Huber weight and share of
+    the normal equations, 19 in the checks; a feature 58 a step for the
+    damping, the Cramer solve and the accept, 64 once for the two-view
+    depth, the checks and the world point, 8 more for a prior point."""
+    n = mask.sum(-1).double()
+    per_f = n * (63 + 26 * (iters + 1) + 85 * iters + 19) + 58 * iters + 64
+    return float(per_f.sum()) + (8 * n.numel() if prior else 0)
+
+
+def k6_phase(dev, tri_in):
+    """Phase 16: K6 against its plain version under torch.func.vmap on
+    the replay's inputs `tri_in` (phase 5's K6 calls, in order: each
+    filter frame's stacked call, then its last-chance call), at the object
+    path's and the fleet cell's shapes, and its times."""
+    import torch
+
+    from orcvio_tpu_torch.config.core import FilterConfig
+    from orcvio_tpu_torch.ops import triangulate as k6
+
+    sys.path.append(str(Path(__file__).resolve().parent / "tests"))
+    from tri_cases import tri_cost, tri_rows
+
+    fcfg = FilterConfig(**BENCH_FILTER)
+    kw = dict(huber=fcfg.huber_epsilon, iters=fcfg.tri_max_iters,
+              damping=fcfg.tri_initial_damping)
+    step = torch.func.vmap(lambda *a: k6.triangulate(*a, **kw))
+    tols = {torch.float32: 1e-5, torch.float64: 10 * (2.0 ** -53) ** 0.5}
+
+    def wide(rows, dtype):
+        return [x.to(dtype) if x is not None and x.is_floating_point()
+                else x for x in rows]
+
+    def held(name, rows):
+        """One launch; valid, anchor_slot and the finite outputs as the
+        plain version's; the valid features' relative gap in p_anchor,
+        p_world and inv_param within the dtype's tolerance, in float64 for
+        99 % of them and the cost (tri_cost) at the two answers within
+        1e-8 of each other for all: at a static start the cost hardly sees
+        depth, and the two versions' rounding leaves x up to some 5e-6
+        apart with the same cost (PERF.md section 6)."""
+        tol = tols[rows[0].dtype]
+        n = k6.triangulate.launches
+        got = step(*(x for x in rows if x is not None))
+        torch.cuda.synchronize()
+        launches = k6.triangulate.launches - n
+        want = k6._plain_rows(*rows, **kw)
+        same = (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+                and all(torch.equal(torch.isfinite(got[i]),
+                                    torch.isfinite(want[i]))
+                        for i in (0, 1, 4)))
+        v = want[3]
+        gaps = torch.stack([(got[i] - want[i]).norm(dim=-1)
+                            / want[i].norm(dim=-1) for i in (0, 1, 4)])
+        gaps = gaps.amax(0)[v]
+        cost = [tri_cost(*rows[:6], x[4])[v] for x in (got, want)]
+        cost_gap = (float(((cost[0] - cost[1]).abs()
+                           / cost[1].clamp(min=1e-12)).max())
+                    if v.any() else 0.0)
+        gap = float(gaps.max()) if v.any() else 0.0
+        share = float((gaps > tol).double().mean()) if v.any() else 0.0
+        close = (share <= 0.01 and cost_gap <= 1e-8
+                 if rows[0].dtype == torch.float64 else gap <= tol)
+        check(launches == 1 and same and close,
+              f"K6 {name}: {launches} launch(es) == 1; valid, anchor_slot "
+              f"and the finite outputs the plain version's: {same}; the "
+              f"valid features' relative gap above {tol:.1e} in "
+              f"{share:.2%} of them (largest {gap:.3e}), their costs "
+              f"{cost_gap:.2e} apart")
+        return {"shape": list(rows[1].shape), "valid": int(v.sum()),
+                "max_rel_err": gap, "tol": tol, "share_above_tol": share,
+                "max_rel_cost_gap": cost_gap}
+
+    def timed(rows, prior=False):
+        """K6's time (device, CUDA events), the plain version's (its
+        launches paced by the host), K6's bound on these rows."""
+        args = [x for x in rows if x is not None]
+        ms = time_ms(lambda: step(*args))
+        plain_ms = time_ms(lambda: k6._plain_rows(*rows, **kw), reps=10)
+        out = step(*args)
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in (*args, *out))
+        ops = k6_ops(rows[1], kw["iters"], prior)
+        bnd, by = bound_ms(nbytes, ops, FP64_FLOP_PER_S)
+        return {"shape": list(rows[1].shape), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd, "bound_by": by, "ops": ops,
+                "bytes": nbytes}
+
+    checks, times = {}, {}
+    check(len(tri_in) % 2 == 0 and len(tri_in) > 0,
+          f"K6: phase 5 kept {len(tri_in)} calls, two a filter frame")
+    for kind, calls in (("stacked", tri_in[0::2]),
+                        ("last_chance", tri_in[1::2])):
+        rows = [torch.stack(x) for x in zip(*calls)] + [None]
+        for dtype in (torch.float32, torch.float64):
+            checks[f"replay {kind} {str(dtype)[6:]}"] = held(
+                f"replay {kind} {str(dtype)[6:]}", wide(rows, dtype))
+        if kind == "stacked":
+            times["replay frame float32"] = timed([
+                None if x is None else x[:1] for x in rows])
+            times["replay frames float32"] = timed(rows)
+    obj = tri_rows(64, 12, 32, 32, 31, prior=True, holes=True,
+                   dead_row=True, device=dev)
+    fleet = tri_rows(1024, 32, 6, 20, 32, dead_row=True, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        d = str(dtype)[6:]
+        checks[f"objects {d}"] = held(f"objects {d}", wide(obj, dtype))
+        checks[f"fleet {d}"] = held(f"fleet {d}", wide(fleet, dtype))
+        times[f"fleet {d}"] = timed(wide(fleet, dtype))
+    times["objects float64"] = timed(obj, prior=True)
+
+    # the plain version's kernels and their device time, a fleet call
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k6._plain_rows(*fleet, **kw)
+        torch.cuda.synchronize()
+    plain_rows = device_rows(prof)
+    top = times["fleet float64"]
+    return {"checks": checks, "times": times, "kw": kw, "kernel": {
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "shape": "1024 rows x 32 tracks x 6 observations, window 20, "
+                 "float64",
+        "plain_kernels_a_call": sum(c for _, c in plain_rows.values()),
+        "plain_device_ms": sum(ms for ms, _ in plain_rows.values()),
+        "by_shape": times,
+        "max_rel_err_by_case": {k: v["max_rel_err"]
+                                for k, v in checks.items()},
+        "check": "vs plain under vmap on the replay's stacked and "
+                 "last-chance calls (f32, f64), objects T=32 with a "
+                 "prior and fleet 1024x32x6 (f32, f64): one launch, "
+                 "valid/anchor_slot identical, 1e-5 (f32) / 10 sqrt(u) "
+                 "(f64) relative"}}
+
+
 def bound_ms(nbytes, ops, flop_per_s=FP32_FLOP_PER_S):
     """(the least time in ms for `nbytes` of memory traffic and `ops`
     operations at `flop_per_s`, float32's rate unless given, and which of
@@ -1101,13 +1256,14 @@ class SyncWindow:
 
 
 def launch_counts(reset=False):
-    """K1, K2 and K4's launch counters (set to 0 first with reset)."""
+    """K1, K2, K4 and K6's launch counters (set to 0 first with reset)."""
     from orcvio_tpu_torch.ops.cov_update import cov_update
     from orcvio_tpu_torch.ops.dma_gather import dma_gather_tiles
     from orcvio_tpu_torch.ops.lk_pallas import lk_level_fused
+    from orcvio_tpu_torch.ops.triangulate import triangulate
 
     wrappers = {"window_gather": dma_gather_tiles, "lk_level": lk_level_fused,
-                "cov_update": cov_update}
+                "cov_update": cov_update, "triangulate": triangulate}
     if reset:
         for w in wrappers.values():
             w.launches = 0
@@ -1156,9 +1312,10 @@ def check_euroc_run(name, summary, tum_path, jax_fig, launches, frames):
               f"{jax_fig['ate_m'][al]:.4f} + min({ATE_MARGIN_M}, itself)")
     check(launches["window_gather"] == frames
           and launches["lk_level"] == 4 * frames
-          and launches["cov_update"] == 3 * n_filter,
-          f"{name}: launches {launches} == K1 1*T, K2 4*T, K4 3 x "
-          f"{n_filter} filter frames (T = {frames})")
+          and launches["cov_update"] == 3 * n_filter
+          and launches["triangulate"] == 2 * n_filter,
+          f"{name}: launches {launches} == K1 1*T, K2 4*T, K4 3 x and K6 "
+          f"2 x {n_filter} filter frames (T = {frames})")
     return {"init_frame": k0, "filter_frames": n_filter,
             "ms_per_frame": 1e3 / summary["fps"], "ate_m": ate_m,
             "jax_ate_m": jax_fig["ate_m"],
@@ -1498,7 +1655,8 @@ def flag_phase(dev, bench, wc):
             torch.cuda.synchronize()
             ms = e0.elapsed_time(e1) / 10
             syncs = find_syncs(lambda: run(range(k0 + 12, T)))
-            k4 = launch_counts()["cov_update"]
+            k4, k6 = (launch_counts()[key]
+                      for key in ("cov_update", "triangulate"))
             P_finite = bool(torch.isfinite(vs.filter.P).all())
             for key, xs in pending.items():
                 if all(bool(torch.isfinite(x).all()) for x in xs):
@@ -1540,13 +1698,17 @@ def flag_phase(dev, bench, wc):
             check(k4 == per_frame * n_filter,
                   f"flags {name}: K4 launches {k4} == {per_frame} x "
                   f"{n_filter} filter frames")
+            check(k6 == k6_per_frame(cfg) * n_filter,
+                  f"flags {name}: K6 launches {k6} == {k6_per_frame(cfg)} "
+                  f"x {n_filter} filter frames")
             report[name] = {
                 "init_frame": ki, "jax_init_frame": k0,
                 "pos_err_m": err, "jax_pos_err_m": jax_fig["pos_err_m"],
                 "finite": finite, "jax_finite": jax_fig["finite"],
                 "first_nonfinite_frame": bad,
                 "jax_first_nonfinite_frame": jbad,
-                "k4_launches": k4, "filter_frames": n_filter,
+                "k4_launches": k4, "k6_launches": k6,
+                "filter_frames": n_filter,
                 "k4_per_filter_frame": k4 / max(n_filter, 1),
                 "syncs": len(syncs), "sync_sites": sorted(set(syncs))[:6],
                 "sync_frames": T - k0 - 12, "ms_per_filter_frame": ms,
@@ -1581,7 +1743,8 @@ def flag_phase(dev, bench, wc):
             vs, out = vio_step(cfg, vs, frame64[k], chi2)
             outs.append(out)
             nui.append(vs.filter.nui.valid.any())
-        k4f = launch_counts()["cov_update"]
+        k4f, k6f = (launch_counts()[key]
+                    for key in ("cov_update", "triangulate"))
         demoted = first_true(torch.stack(nui).cpu().numpy())
         p = torch.stack([o.p for o in outs]).cpu().numpy()
         R = torch.stack([o.R for o in outs]).cpu().numpy()
@@ -1619,11 +1782,15 @@ def flag_phase(dev, bench, wc):
         check(k4f == per_frame * n_filter,
               f"flags {name} float64: K4 launches {k4f} == {per_frame} x "
               f"{n_filter} filter frames")
+        check(k6f == k6_per_frame(cfg) * n_filter,
+              f"flags {name} float64: K6 launches {k6f} == "
+              f"{k6_per_frame(cfg)} x {n_filter} filter frames")
         report[name]["flight"] = {
             "dtype": "float64", "frames": TF, "init_frame": ki,
             "pos_err_m": err_f, "jax_pos_err_m": jf["pos_err_m"],
             "finite": finite_f, "n_upd": n_upd_f, "jax_n_upd": jf["n_upd"],
-            "k4_launches": k4f, "first_demotion_frame": demoted,
+            "k4_launches": k4f, "k6_launches": k6f,
+            "first_demotion_frame": demoted,
             "jax_first_demotion_frame": jf.get("first_demotion_frame"),
             "zupt_frames": int(sum(bool(o.zupt) for o in outs[T:])),
             **blocks, **{"jax_" + key: jf[key] for key in blocks}}
@@ -1645,6 +1812,12 @@ def k4_per_frame(cfg):
     if (cfg.update_form == "information" or cfg.joseph_form) and not schmidt:
         return 0
     return 2 + cfg.if_zupt
+
+
+def k6_per_frame(cfg):
+    """K6's launches a filter frame: the candidates' triangulation and,
+    where the last-chance update runs, the pruned clones' tracks'."""
+    return 1 + (cfg.prune_last_chance and not cfg.prediction_only)
 
 
 def update_forms_check(dev, seed=5):
@@ -2076,7 +2249,8 @@ def batched_bench(dev, bench, wc, gt_q, frame_ts):
     prof = profile_frames(lambda: run(next(later)), n)
     run(range(k + 20 + 2 * n, TE))
     outs = {key: torch.cat([p[key] for p in parts], 1) for key in parts[0]}
-    want = {"window_gather": 1, "lk_level": 4, "cov_update": 3}
+    want = {"window_gather": 1, "lk_level": 4, "cov_update": 3,
+            "triangulate": 2}
     per_frame = {key: v / len(window) for key, v in launches.items()}
     check(per_frame == want,
           f"batched e2e: launches per batched frame {per_frame} == a single "
@@ -3066,7 +3240,7 @@ def scale_out_phase(dev, seq):
 
 
 def all_launches():
-    """The launch counters of K1-K5 (K3 and K5 beside launch_counts')."""
+    """The launch counters of K1-K6 (K3 and K5 beside launch_counts')."""
     from orcvio_tpu_torch.ops.lk_pallas import lk_iterate_fused
     from orcvio_tpu_torch.scripts.race_extract import extract_pallas
 
@@ -3363,7 +3537,7 @@ def training_phase(dev):
         seconds[name] = time.perf_counter() - t0
     launches = all_launches()
     check(not any(launches.values()),
-          f"phase 15: K1-K5 launched no time on the training path "
+          f"phase 15: K1-K6 launched no time on the training path "
           f"({launches})")
     report["launches"] = launches
     report["seconds"] = seconds
@@ -3393,6 +3567,7 @@ def main() -> int:
         from orcvio_tpu_torch.eval.staged import (
             make_e2e_replay, make_tracker_scan, stage_sequence)
         from orcvio_tpu_torch.eval.trajectory import ate
+        from orcvio_tpu_torch.filter import pipeline as filter_pipeline
         from orcvio_tpu_torch.filter import update as filter_update
         from orcvio_tpu_torch.frontend import klt
         from orcvio_tpu_torch.frontend.detect import detect_grid
@@ -3409,6 +3584,7 @@ def main() -> int:
         from orcvio_tpu_torch.ops.lk_pallas import (
             lk_iterate_fused, lk_iterate_fused_plain, lk_iterate_src,
             lk_level_fused, lk_level_fused_plain, lk_level_src)
+        from orcvio_tpu_torch.ops.triangulate import triangulate
         from orcvio_tpu_torch.ops.window_gather import window_origins
         from orcvio_tpu_torch.scripts import race_extract as race
         from orcvio_tpu_torch.vio import VioState
@@ -3715,17 +3891,26 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # the counted run; K4's inputs are kept per row count q as they pass
-    # (stacked update, last-chance update, ZUPT) for the kernel checks
-    captured = {}
+    # (stacked update, last-chance update, ZUPT) for the kernel checks, and
+    # every call's K6 inputs, in order, for phase 16
+    captured, tri_in = {}, []
+    filter_triangulate = filter_pipeline.triangulate
 
     def capture(P, K, H, HP=None):
         captured[K.shape[1]] = tuple(x.clone() for x in (P, K, H))
         return cov_update(P, K, H, HP)
 
+    def capture_tri(cfg, ct, R_c2w, t_c_w, p_init_world=None):
+        tri_in.append(tuple(x.clone() for x in (
+            ct.uv, ct.mask, ct.slot, ct.n_obs, R_c2w, t_c_w)))
+        return filter_triangulate(cfg, ct, R_c2w, t_c_w, p_init_world)
+
     filter_update.cov_update = capture
+    filter_pipeline.triangulate = capture_tri
     dma_gather_tiles.launches = 0
     lk_level_fused.launches = 0
     cov_update.launches = 0
+    triangulate.launches = 0
     try:
         t0 = time.perf_counter()
         _, outs = replay(ts_e, vs_e, staged_e)
@@ -3733,9 +3918,11 @@ def main() -> int:
         e2e_first_s = time.perf_counter() - t0
     finally:
         filter_update.cov_update = cov_update
+        filter_pipeline.triangulate = filter_triangulate
     e2e_launches = {"window_gather": dma_gather_tiles.launches,
                     "lk_level": lk_level_fused.launches,
-                    "cov_update": cov_update.launches}
+                    "cov_update": cov_update.launches,
+                    "triangulate": triangulate.launches}
 
     TE = E2E_FRAMES
     inited = outs["initialized"].cpu().numpy()
@@ -3764,6 +3951,9 @@ def main() -> int:
     check(e2e_launches["cov_update"] == 3 * n_filter,
           f"K4 launches {e2e_launches['cov_update']} == 3 x filter frames "
           f"= {3 * n_filter}")
+    check(e2e_launches["triangulate"] == len(tri_in) == 2 * n_filter,
+          f"K6 launches {e2e_launches['triangulate']}, calls {len(tri_in)} "
+          f"== 2 x filter frames = {2 * n_filter}")
     check(e2e_launches["window_gather"] == TE
           and e2e_launches["lk_level"] == 4 * TE,
           f"e2e K1 launches {e2e_launches['window_gather']} == 1*T, "
@@ -4197,6 +4387,25 @@ def main() -> int:
         kern["launches_training"] = training["launches"][kern["name"]]
 
     lap("15 training")
+    # ---------------- 16. K6 ----------------
+    k6 = k6_phase(dev, tri_in)
+    emit({"k6": {key: v for key, v in k6.items() if key != "kernel"}})
+    kernels.append(
+        {"name": "triangulate", "route": "cuda",
+         "source": "orcvio_tpu_torch/csrc/triangulate.cu",
+         "replaces": None,
+         "counterpart": "orcvio_tpu/filter/triangulation.py:triangulate "
+                        "(plain jnp that XLA fuses; no TPU kernel)",
+         "launches": e2e_launches["triangulate"],
+         **{f"launches_euroc_{run}": euroc[run]["launches"]["triangulate"]
+            for run in ("staged", "host_loop") if run in euroc},
+         "launches_flags": sum(
+             v["k6_launches"] + v.get("flight", {}).get("k6_launches", 0)
+             for v in flags.values()),
+         "launches_batched": batched["e2e"]["launches"]["triangulate"],
+         "launches_training": training["launches"]["triangulate"],
+         **k6["kernel"]})
+    lap("16 K6")
     emit({"phase_seconds": laps, "total_s": sum(laps.values())})
     for kern in kernels:  # None where the library was built before this run
         kern["ptxas"] = ptxas.get(Path(kern["source"]).stem)

@@ -39,6 +39,19 @@ window route; a NaN row where the search bounds exceed the tile or the
 window lies outside its source; exactly `iters` steps, a NaN step
 included. K5 (``csrc/extract64.cu``): bit-exact, windows and offsets.
 
+K6 (``csrc/triangulate.cu``): a batch of triangulations under
+``torch.func.vmap`` is one launch; valid and anchor_slot identical to the
+plain version's (both compute in float64, for float32 tensors too), at
+the fleet cell's shape and the object path's (T = 32, with a prior
+point); on noise-free tracks the valid features' positions within 1e-12
+(float64) and 1e-5 (float32) relative, on noisy ones within 10 sqrt(u) in
+float64, where the Levenberg-Marquardt loop's accept decisions may differ
+by the two versions' rounding of the cost; after 1, 2 and 3 steps on
+tracks with outliers past the Huber threshold, every feature's cost at
+the two answers within 1e-9, and after 1 and 2 steps x within 1e-10;
+at a static start's baseline, float32 tensors within 1e-5 of the float64
+answer where float32 arithmetic is 1e-4 or more off it.
+
 The StarMap network (no kernel of ours: cuDNN convolutions, as the JAX
 package's are XLA's) in float32 on the card against its float64 CPU run.
 """
@@ -607,3 +620,154 @@ def test_starmap_network_on_the_card_matches_float64_cpu(card):
     clear = want["peaks_valid"] & (gap.amin(-1) > 1e-5)
     err = (got["peaks_xy"].double().cpu() - want["peaks_xy"]).norm(dim=-1)
     assert clear.sum() > 8 and float(err[clear].max()) < 0.05
+
+
+# --- K6: the triangulation's Levenberg-Marquardt loop in one launch ---
+# Against the plain version on the card over the same rows (its per-row
+# bits, tests/test_torch_triangulate.py), at the fleet cell's shape
+# (1024 rows of 32 tracks of 6 observations in a window of 20) and at the
+# object path's (12 keypoints over 32 frames, with a prior point partly
+# NaN and partly behind the camera, and holes in the masks); each has
+# tracks with fewer than 2 observations and a row masked out whole
+# (tests/tri_cases.py). Both compute in float64 whatever the tensors'
+# type (float32 inputs widened exactly, each output rounded once).
+TRI_CASES = {"fleet": dict(B=1024, F=32, T=6, S=20),
+             "objects": dict(B=64, F=12, T=32, S=32, prior=True, holes=True)}
+TRI_KW = dict(huber=0.01, iters=10, damping=1e-3)
+
+
+def _tri_both(card, dtype, case, noise, kw=TRI_KW, every=False, **more):
+    """K6 under vmap (one launch) against the plain version: each
+    feature's gap in p_anchor, p_world and inv_param over its size, and
+    the gap between the costs (tri_cost) at the two versions' answers
+    over the plain one's, for the valid features (every=False) or for
+    every feature of 2 or more observations, whose loop ran on real
+    data."""
+    from orcvio_tpu_torch.ops import triangulate as k6
+    from tri_cases import tri_cost, tri_rows
+
+    rows = tri_rows(**{**TRI_CASES[case], **more}, seed=21, dtype=dtype,
+                    device=card, dead_row=True, noise=noise)
+    n = k6.triangulate.launches
+    got = torch.func.vmap(lambda *a: k6.triangulate(*a, **kw))(
+        *(x for x in rows if x is not None))
+    torch.cuda.synchronize()
+    assert k6.triangulate.launches == n + 1
+    want = k6._plain_rows(*rows, **kw)
+    assert torch.equal(got[2], want[2])  # anchor_slot
+    assert torch.equal(got[3], want[3])  # valid
+    assert not bool(got[3][-1].any()) and not bool(got[3][rows[3] < 2].any())
+    for i in (0, 1, 4):
+        assert torch.equal(torch.isfinite(got[i]), torch.isfinite(want[i]))
+    v = want[3]
+    if every:
+        v = rows[3] >= 2
+    else:
+        assert int(v.sum()) > v.numel() // 4
+    cost = [tri_cost(*rows[:6], x[4])[v] for x in (got, want)]
+    return ([((got[i] - want[i]).norm(dim=-1) / want[i].norm(dim=-1))[v]
+             for i in (0, 1, 4)],
+            (cost[0] - cost[1]).abs() / cost[1].clamp(min=1e-12))
+
+
+@pytest.mark.parametrize("case", list(TRI_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_triangulate_matches_plain(card, dtype, case):
+    """Noise-free tracks, whose minimum has no residual: the valid
+    features within 1e-12 (float64) and 1e-5 (float32) of the plain
+    version, relative to each feature's size; valid, anchor_slot and which
+    outputs are finite identical."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for rel in _tri_both(card, dtype, case, noise=0.0)[0]:
+        assert float(rel.max()) <= tol
+
+
+@pytest.mark.parametrize("case", list(TRI_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_triangulate_on_noisy_tracks(card, dtype, case):
+    """1e-3 of noise on every observation. The minimum keeps a residual
+    r = h/h_z - uv that cancels, so the two versions' costs differ by
+    their rounding, and where a step changes the cost by less than that
+    one version may accept the step and the other reject it: x then
+    differs by that step, at most some sqrt(u) of it (u the float64 unit
+    roundoff). Decisions identical as above; the valid features within
+    10 sqrt(u) in float64, and within 1e-5 in float32, whose rounding of
+    the outputs is larger."""
+    tol = 10 * (2.0 ** -53) ** 0.5 if dtype == torch.float64 else 1e-5
+    for rel in _tri_both(card, dtype, case, noise=1e-3)[0]:
+        assert float(rel.max()) <= tol
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("case", list(TRI_CASES))
+def test_triangulate_takes_the_plain_versions_steps(card, case, iters):
+    """The loop's path, not its fixed point: 1-3 steps from the initial
+    guess, on noisy tracks with outliers well past the Huber threshold
+    (their weights 2 huber / e < 1) left in the masks, so each step's
+    size, the damping's x10 or /10 and the Huber weights all move x.
+    Every feature of 2 or more observations (most of those with an
+    outlier fail the cost check), in float64: its cost at K6's answer
+    within 1e-9 of the cost at the plain version's, relative; after 1 and
+    2 steps x within 1e-10. From the third step on, features that have
+    converged reach cost ties (a step that changes the cost by less than
+    its rounding, accepted by one version and not the other) or move
+    along a direction the cost hardly sees, where x differs by up to 1e-8
+    with the cost the same and either version's the lower as often (on an
+    H100: 1 of 23,469 fleet features above 1e-12 after 1 and 2 steps, at
+    2.8e-12 and 8.1e-12; 4,749 after 3, the largest 1.7e-8, the costs
+    within 1.7e-10). A kernel that skipped the Huber weights, swapped the
+    damping's x10 and /10 or ran a step fewer moves the cost by far more."""
+    kw = {**TRI_KW, "iters": iters}
+    rel, cost = _tri_both(card, torch.float64, case, noise=1e-3, kw=kw,
+                          every=True, outliers=True)
+    assert float(cost.max()) <= 1e-9
+    if iters < 3:
+        for x in rel:
+            assert float(x.max()) <= 1e-10
+
+
+def test_triangulate_float32_computes_in_float64(card):
+    """Cameras within some 3 mm of each other (a static start): float32
+    arithmetic leaves the depth to rounding, 1e-4 or more off the float64
+    answer (the plain version run in float32 on the same inputs); float32
+    K6 lies within 1e-5 of the float64 answer, rounded."""
+    from orcvio_tpu_torch.ops import triangulate as k6
+    from tri_cases import tri_rows
+
+    rows = tri_rows(32, 32, 6, 20, 22, dtype=torch.float32, device=card,
+                    baseline=0.02)
+    got = torch.func.vmap(lambda *a: k6.triangulate(*a, **TRI_KW))(
+        *(x for x in rows if x is not None))
+    want = k6._plain_rows(*rows, **TRI_KW)
+    f32 = [torch.stack(x) for x in zip(*(
+        k6.triangulate_plain(*(x[b] for x in rows[:6]), None, **TRI_KW)
+        for b in range(rows[1].shape[0])))]
+    assert torch.equal(got[3], want[3])
+    v = want[3] & f32[3]
+    assert int(v.sum()) > v.numel() // 4
+    for i in (0, 1, 4):
+        gap = (got[i] - want[i]).norm(dim=-1) / want[i].norm(dim=-1)
+        off = (f32[i] - want[i]).norm(dim=-1) / want[i].norm(dim=-1)
+        assert float(gap[v].max()) <= 1e-5
+        assert float(off[v].max()) > 1e-4
+
+
+def test_triangulate_refuses_what_it_cannot_take(card):
+    from orcvio_tpu_torch.ops import triangulate as k6
+    from tri_cases import tri_rows
+
+    uv, mask, slot, n_obs, R, t, _ = (x[0] if x is not None else None for x
+                                      in tri_rows(1, 4, 6, 20, 1,
+                                                  device=card))
+    with pytest.raises(ValueError, match="slot"):
+        k6.triangulate(uv, mask, slot.int(), n_obs, R, t, **TRI_KW)
+    with pytest.raises(ValueError, match="R_c2w"):
+        k6.triangulate(uv, mask, slot, n_obs, R.float(), t, **TRI_KW)
+    with pytest.raises(TypeError):
+        k6.triangulate(uv.half(), mask, slot, n_obs, R, t, **TRI_KW)
+    n = k6.triangulate.launches
+    out = k6.triangulate(uv[:0], mask[:0], slot[:0], n_obs[:0], R, t,
+                         **TRI_KW)
+    assert [tuple(x.shape) for x in out] == [(0, 3), (0, 3), (0,), (0,),
+                                             (0, 3)]
+    assert k6.triangulate.launches == n
