@@ -8,7 +8,9 @@ the device. ``make_e2e_replay`` runs the tracker and then ``vio_step``
 (static init, then the filter) per frame; ``make_tracker_scan`` runs the
 front end alone. After initialization the loop reads nothing back.
 ``make_batched_e2e_replay`` runs B streams over one shared sequence as one
-batch, ``torch.func.vmap`` of the same frame step.
+batch, ``torch.func.vmap`` of the same frame step, each frame's tracker
+inside the span ``replay.track`` and its filter inside ``replay.vio``
+(``utils/profiling.py:span``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from ..config.core import FilterConfig
 from ..filter.pipeline import FrameInput, build_chi2_table
 from ..frontend.ransac import RANSAC_HYPOTHESES, draw_gumbel
 from ..frontend.tracker import TrackerConfig, TrackerState, process_frame
+from ..utils.profiling import span
 from ..vio import VioState, batched_vio_step, vio_step
 
 
@@ -53,11 +56,16 @@ def stage_sequence(images_u8: np.ndarray, frame_ts, imu_t, imu_gyro, imu_acc,
     )
 
 
+# the tracker's gate counts the replays pass through (TrackerOutput)
+COUNTS = ("n_lk_in", "n_lk_ok", "n_orb_ok", "n_inliers", "n_placed")
+
+
 def _track(tc: TrackerConfig, ts: TrackerState, staged: StagedInputs, k: int,
            R_b2c, dtype, gumbel=None):
-    """Frame k through the front end: (tracker state, FrameInput). The
-    tracker runs in R_b2c's dtype, the FrameInput is in `dtype`; gumbel:
-    the frame's (128, 8, N) RANSAC noise, else drawn from ts.rng."""
+    """Frame k through the front end: (tracker state, FrameInput, the
+    tracker's gate counts as a dict of 0-d tensors). The tracker runs in
+    R_b2c's dtype, the FrameInput is in `dtype`; gumbel: the frame's (128,
+    8, N) RANSAC noise, else drawn from ts.rng."""
     tdt = R_b2c.dtype
     im = staged.imu_mask[k]
     denom = torch.clamp(torch.sum(im), min=1)
@@ -72,17 +80,20 @@ def _track(tc: TrackerConfig, ts: TrackerState, staged: StagedInputs, k: int,
         imu_mask=staged.imu_mask[k], fids=tout.fids,
         uvs=tout.uvs.to(dtype), uv_vels=tout.uv_vels.to(dtype),
         meas_mask=tout.meas_mask)
-    return ts, frame
+    return ts, frame, {n: getattr(tout, n) for n in COUNTS}
 
 
-def _stack_outs(outs, inits, dim=0):
-    """The replays' outs: per-frame FrameOutputs and flags stacked on
-    `dim`."""
+def _stack_outs(outs, inits, counts, dim=0):
+    """The replays' outs: per-frame FrameOutputs, flags and the tracker's
+    counts stacked on `dim`."""
     stacked = {name: torch.stack([getattr(o, field) for o in outs], dim)
                for name, field in (("p", "p"), ("R", "R"), ("v", "v"),
                                    ("n_upd", "n_update_features"),
-                                   ("zupt", "zupt"))}
+                                   ("zupt", "zupt"),
+                                   ("n_ekf", "n_ekf_features"))}
     stacked["initialized"] = torch.stack(inits, dim)
+    for n in COUNTS:
+        stacked[n] = torch.stack([c[n] for c in counts], dim)
     return stacked
 
 
@@ -92,8 +103,9 @@ def make_e2e_replay(cfg: FilterConfig, tc: TrackerConfig, R_b2c, t_c_b,
     frames=None) -> ((tracker_state, vio_state), outs).
 
     outs: dict of per-frame stacked "p", "R", "v", "n_upd", "zupt" (as
-    the JAX package's) and "initialized" (the filter's flag after the
-    frame: true from the frame static init ends on).
+    the JAX package's), "initialized" (the filter's flag after the
+    frame: true from the frame static init ends on), "n_ekf" (in-state
+    features after the frame) and the tracker's gate counts (``COUNTS``).
     frames: a range of frame indices to run (default: all); the frame index
     sets the detection cadence, as in the JAX package's scan. ransac_gumbel:
     optional per-frame (T, 128, 8, N) RANSAC noise (tests pass the JAX
@@ -114,15 +126,16 @@ def make_e2e_replay(cfg: FilterConfig, tc: TrackerConfig, R_b2c, t_c_b,
         vs = vio_state.replace(filter=vio_state.filter.replace(
             R_b2c=R_b2c, t_c_b=t_c_b))
         ts = tracker_state
-        outs, inits = [], []
+        outs, inits, counts = [], [], []
         for k in (range(staged.images.shape[0]) if frames is None else frames):
-            ts, frame = _track(tc, ts, staged, k, R_trk, dtype,
-                               None if ransac_gumbel is None
-                               else ransac_gumbel[k])
+            ts, frame, c = _track(tc, ts, staged, k, R_trk, dtype,
+                                  None if ransac_gumbel is None
+                                  else ransac_gumbel[k])
             vs, fout = vio_step(cfg, vs, frame, chi2)
             outs.append(fout)
             inits.append(vs.filter.initialized)
-        return (ts, vs), _stack_outs(outs, inits)
+            counts.append(c)
+        return (ts, vs), _stack_outs(outs, inits, counts)
 
     return replay
 
@@ -166,20 +179,23 @@ def make_batched_e2e_replay(cfg: FilterConfig, tc: TrackerConfig, R_b2c,
         rngs = tracker_states.rng
         ts = tracker_states.replace(rng=None)
         shape = (RANSAC_HYPOTHESES, 8, tc.capacity)
-        outs, inits = [], []
+        outs, inits, counts = [], [], []
         for k in (range(staged.images.shape[0]) if frames is None else frames):
-            if ransac_gumbel is None:
-                gumbel = torch.stack([draw_gumbel(shape, g, R_trk.dtype,
-                                                  device) for g in rngs])
-            else:
-                gumbel = ransac_gumbel[:, k]
-            ts, frame = torch.func.vmap(
-                lambda st, g: _track(tc, st, staged, k, R_trk, dtype, g))(
-                ts, gumbel)
-            vs, fout = batched_vio_step(cfg, vs, frame, chi2)
+            with span("replay.track"):
+                if ransac_gumbel is None:
+                    gumbel = torch.stack([draw_gumbel(shape, g, R_trk.dtype,
+                                                      device) for g in rngs])
+                else:
+                    gumbel = ransac_gumbel[:, k]
+                ts, frame, c = torch.func.vmap(
+                    lambda st, g: _track(tc, st, staged, k, R_trk, dtype, g))(
+                    ts, gumbel)
+            with span("replay.vio"):
+                vs, fout = batched_vio_step(cfg, vs, frame, chi2)
             outs.append(fout)
             inits.append(vs.filter.initialized)
-        return (ts.replace(rng=rngs), vs), _stack_outs(outs, inits, 1)
+            counts.append(c)
+        return (ts.replace(rng=rngs), vs), _stack_outs(outs, inits, counts, 1)
 
     return replay
 
@@ -201,9 +217,9 @@ def make_tracker_scan(tc: TrackerConfig, R_b2c, dtype=torch.float32,
         ts = tracker_state
         outs = []
         for k in range(staged.images.shape[0]):
-            ts, frame = _track(tc, ts, staged, k, R_b2c, dtype,
-                               None if ransac_gumbel is None
-                               else ransac_gumbel[k])
+            ts, frame, _ = _track(tc, ts, staged, k, R_b2c, dtype,
+                                  None if ransac_gumbel is None
+                                  else ransac_gumbel[k])
             outs.append(frame)
         return ts, FrameInput(*(torch.stack(x) for x in zip(*outs)))
 

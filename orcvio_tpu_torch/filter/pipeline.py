@@ -62,6 +62,7 @@ class FrameOutput(NamedTuple):
     n_update_features: torch.Tensor
     dx_norm: torch.Tensor
     zupt: torch.Tensor  # ZUPT fired this frame
+    n_ekf_features: torch.Tensor  # in-state (EKF) features after the frame
 
 
 def build_chi2_table(cfg: FilterConfig, dtype=torch.float32, device=None):
@@ -281,7 +282,9 @@ def filter_step(cfg: FilterConfig, state: FilterState, frame: FrameInput,
         out = FrameOutput(t=state.t, R=state.imu.R, p=state.imu.p,
                           v=state.imu.v,
                           n_update_features=torch.sum(use).to(torch.int32),
-                          dx_norm=torch.linalg.norm(dx), zupt=do_zupt)
+                          dx_norm=torch.linalg.norm(dx), zupt=do_zupt,
+                          n_ekf_features=torch.sum(
+                              state.features.in_state).to(torch.int32))
     return state, out
 
 

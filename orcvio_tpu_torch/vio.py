@@ -60,7 +60,8 @@ def _init_step(cfg: FilterConfig, st: VioState, frame: FrameInput):
     out = FrameOutput(t=frame.t, R=fs.imu.R, p=fs.imu.p, v=fs.imu.v,
                       n_update_features=torch.zeros_like(st.sinit.counter),
                       dx_norm=torch.zeros_like(fs.t),
-                      zupt=torch.zeros_like(fs.initialized))
+                      zupt=torch.zeros_like(fs.initialized),
+                      n_ekf_features=torch.zeros_like(st.sinit.counter))
     return st.replace(filter=fs, sinit=sinit), out
 
 
